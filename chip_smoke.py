@@ -4,12 +4,16 @@
     python3 chip_smoke.py
 
 From the root of a checkout: builds the CUDA kernels from
-``src/repro_torch/csrc``, holds each against its plain PyTorch version,
+``src/repro_torch/csrc``, holds each against its plain PyTorch version
+(the verify kernel also bitwise against chained decode-kernel launches),
 serves full-width tinyllama-1.1b (random bf16 weights from a seed) through
 ``ServeEngine`` under the gmg scheduler (fused and unfused attention,
 one and four decode steps per call, equal token streams required),
 probes whether results depend on batch grouping or prefill chunking,
-profiles one decode forward, and times the kernels with CUDA events.
+holds full-width verify logits bitwise against decode logits, profiles one
+decode forward and the temperature > 0 sampler, serves speculative
+decoding (vllm and gmg, temperature 0 and 0.8) with token streams equal
+to plain decoding, and times the kernels with CUDA events.
 Prints the card, the checks, one JSON line of kernel records and,
 last, one JSON line naming the device.  Exits non-zero, with no result
 lines, on any failed check, when CUDA is unavailable, or outside a checkout.
@@ -32,10 +36,14 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM memory rate
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
 SOURCE = "src/repro_torch/csrc/paged_attention.cu"
 REPLACES = {"fused_decode_attention": "src/repro/kernels/paged_attention.py:147",
-            "paged_attention": "src/repro/kernels/paged_attention.py:462"}
+            "paged_attention": "src/repro/kernels/paged_attention.py:462",
+            "fused_verify_attention": "src/repro/kernels/paged_attention.py:290"}
 # the capped mixed workload of the quickstart's real-execution mode
 WORKLOAD = dict(rate=1.5, duration=6.0, seed=0, mix=(2, 1, 1), prompt_cap=40,
                 output_cap=12, slo_scale=20.0)
+# prompt of every third request in the speculative runs: random prompts
+# give the n-gram drafter nothing to match
+MOTIF = [11, 42, 7, 99]
 
 
 def check(cond: bool, what: str) -> None:
@@ -133,6 +141,118 @@ def check_kernels(torch, pa, c, atol, label, live=None):
     return errs
 
 
+def verify_case(torch, B, W, H, KV, D, page, ctxs, widths, dtype, seed,
+                lanes=None):
+    """A speculative-verification call on the card: ``lanes`` lanes
+    (default B), the first B live with row 0 at context ``ctxs[b]`` (pos0 =
+    ctx - 1) and ``widths[b]`` live rows, on disjoint shuffled pages with
+    room for the window; the rest padding lanes at width 0 on the
+    all-scrap table.  Pool index P-1 is the scrap page."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    lanes = lanes or B
+    n_max = max(-(-(c + W) // page) for c in ctxs)
+    P = B * n_max + 1
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    tables = torch.full((lanes, n_max), P - 1, dtype=torch.int32,
+                        device="cuda")
+    tables[:B] = torch.randperm(P - 1, generator=g, device="cuda").reshape(
+        B, n_max).to(torch.int32)
+    pos0 = torch.zeros(lanes, dtype=torch.int32, device="cuda")
+    pos0[:B] = torch.tensor(ctxs, dtype=torch.int32, device="cuda") - 1
+    wid = torch.zeros(lanes, dtype=torch.int32, device="cuda")
+    wid[:B] = torch.tensor(widths, dtype=torch.int32, device="cuda")
+    return dict(q=rnd(lanes, W, H, D), k_new=rnd(lanes, W, KV, D),
+                v_new=rnd(lanes, W, KV, D), k_pages=rnd(P, page, KV, D),
+                v_pages=rnd(P, page, KV, D), tables=tables, pos0=pos0,
+                widths=wid)
+
+
+def check_verify(torch, pa, c, atol, label) -> float:
+    """``fused_verify_attention`` against its plain version (W chained
+    plain decode steps) and against W chained launches of the
+    ``fused_decode_attention`` kernel, on the live rows (s < width) of one
+    case: within ``atol`` and one bf16 ulp of the plain version, bitwise
+    equal to the chained kernel, pools equal to both off the scrap page.
+    Returns the largest output difference from the plain version."""
+    args = (c["q"], c["k_new"], c["v_new"])
+    tab, pos0, wid = c["tables"], c["pos0"], c["widths"]
+    pools = [(c["k_pages"].clone(), c["v_pages"].clone()) for _ in range(3)]
+    o_k, kk, vk = pa.fused_verify_attention(*args, *pools[0], tab, pos0, wid)
+    o_p, kp, vp = pa.fused_verify_attention_ref(*args, *pools[1], tab, pos0,
+                                                wid)
+    kc, vc = pools[2]
+    scrap = torch.full_like(tab, c["k_pages"].shape[0] - 1)
+    chained = []
+    for s in range(c["q"].shape[1]):
+        tab_s = torch.where(wid[:, None] > s, tab, scrap)
+        o, kc, vc = pa.fused_decode_attention(
+            *(a[:, s].contiguous() for a in args), kc, vc, tab_s, pos0 + s)
+        chained.append(o)
+    o_c = torch.stack(chained, dim=1)
+    torch.cuda.synchronize()
+    live = (torch.arange(c["q"].shape[1], device="cuda")[None, :]
+            < wid[:, None])
+    diff = (o_k[live].float() - o_p[live].float()).abs()
+    err = diff.max().item()
+    check(err <= atol, f"fused_verify_attention {label}: {err} > {atol}")
+    if o_p.dtype == torch.bfloat16:
+        check(bool((diff <= 2.0 ** -7 * o_p[live].float().abs()
+                    + 1e-5).all()),
+              f"fused_verify_attention {label}: more than one bf16 ulp off")
+    same = bool(torch.equal(o_k[live], o_c[live]))
+    pools_equal = all(torch.equal(a[:-1], b[:-1]) for a, b in
+                      ((kk, kp), (vk, vp), (kk, kc), (vk, vc)))
+    print(f"  {label}: fused_verify_attention max|diff| {err:.3e}, bitwise "
+          f"equal to chained fused_decode_attention: {same}, pools equal "
+          f"off the scrap page: {pools_equal}")
+    check(same, f"fused_verify_attention {label}: live rows differ from "
+          "chained fused_decode_attention launches")
+    check(pools_equal, f"fused_verify_attention {label}: pools differ")
+    return err
+
+
+VERIFY_MAIN = [  # (B, W, row-0 contexts, widths): bf16, H=32 KV=4 D=64
+    (1, 2, [511], [2]), (1, 5, [508], [5]), (1, 9, [504], [9]),
+    (8, 2, [1, 15, 16, 17, 100, 256, 500, 510], [2, 1, 2, 2, 1, 2, 2, 2]),
+    (8, 5, [1, 12, 16, 17, 100, 256, 500, 508], [5, 1, 3, 5, 2, 5, 4, 5]),
+    (8, 9, [1, 8, 16, 17, 100, 250, 497, 504], [9, 1, 9, 5, 9, 2, 7, 9])]
+VERIFY_SWEEP = [  # (B, W, H, KV, D, page, contexts, widths): f32
+    (3, 3, 6, 3, 64, 16, [1, 40, 200], [3, 1, 2]),      # GQA, heads not 2^k
+    (2, 4, 8, 1, 128, 16, [77, 300], [4, 3]),           # MQA, D=128
+    (2, 5, 16, 4, 16, 8, [5, 60], [5, 2]),              # D=16, page 8
+    (2, 2, 8, 2, 128, 16, [127, 128], [2, 2])]          # D=128, page edge
+
+
+def check_verify_all(torch, pa) -> float:
+    """Every verify-kernel case; returns the largest error at the main
+    path's shapes (bf16, full width)."""
+    worst = 0.0
+    for B, W, ctxs, widths in VERIFY_MAIN:
+        c = verify_case(torch, B, W, 32, 4, 64, 16, ctxs, widths,
+                        torch.bfloat16, seed=300 + 10 * B + W)
+        worst = max(worst, check_verify(
+            torch, pa, c, 2e-2, f"bf16 B={B} W={W} H=32 KV=4 D=64 "
+            f"ctx<={max(ctxs) + W - 1} widths {widths}"))
+    # the serving path's verify call: 64 lanes, 8 drafted lanes at
+    # contexts across page edges up to 52, 56 padding lanes at width 0
+    c = verify_case(torch, 8, 5, 32, 4, 64, 16, [1, 15, 16, 17, 32, 33, 48,
+                                                  52], [5, 2, 5, 1, 4, 5, 3,
+                                                        5],
+                    torch.bfloat16, seed=400, lanes=64)
+    worst = max(worst, check_verify(
+        torch, pa, c, 2e-2, "bf16 64 lanes (8 live, ctx<=56) W=5 H=32 KV=4 "
+        "D=64"))
+    for i, (B, W, H, KV, D, page, ctxs, widths) in enumerate(VERIFY_SWEEP):
+        c = verify_case(torch, B, W, H, KV, D, page, ctxs, widths,
+                        torch.float32, seed=500 + i)
+        check_verify(torch, pa, c, 1e-5, f"f32 B={B} W={W} H={H} KV={KV} "
+                     f"D={D} page={page}")
+    return worst
+
+
 def median_ms(torch, fn, flush, reps=30):
     """Median device time of one call from CUDA events, with the L2 cache
     flushed before every call (the decode step walks 22 layers of pools,
@@ -156,40 +276,67 @@ def median_ms(torch, fn, flush, reps=30):
     return statistics.median(a.elapsed_time(b) for a, b in events)
 
 
-def serve(torch, pa, fused, decode_steps):
+def serve(torch, pa, fused=True, decode_steps=1, scheduler="gmg", spec=0,
+          temperature=0.0, motifs=False):
     """Full-width tinyllama-1.1b through run(); kernel launch counts are
-    zeroed just before the run and read just after it."""
+    zeroed just before the run and read just after it.  ``spec`` is the
+    engine's draft-depth ceiling; temperature > 0 samples with top_k 50.
+    With ``motifs`` every third request's prompt repeats ``MOTIF``: run()
+    takes no prompt tokens, so that run builds the same workload and
+    drives ServeEngine itself."""
+    from repro_torch.core.baselines import make_scheduler
+    from repro_torch.core.service import ServiceModel
     from repro_torch.obs import MetricsRegistry
-    from repro_torch.serving.engine import EngineConfig
+    from repro_torch.serving.engine import EngineConfig, ServeEngine
+    from repro_torch.serving.metrics import summarize
     from repro_torch.serving.run import (BackendSpec, ExperimentSpec,
                                          TelemetrySpec, run)
     from repro_torch.serving.torch_backend import PagedTorchBackend
-    from repro_torch.serving.workload import WorkloadSpec
+    from repro_torch.serving.workload import WorkloadGen, WorkloadSpec
 
     be = PagedTorchBackend(arch="tinyllama-1.1b", reduced=False,
                            num_blocks=512, page=16, max_len=256, seed=0,
-                           fused=fused)
+                           fused=fused, temperature=temperature,
+                           top_k=50 if temperature > 0 else 0)
     check(be.cfg.d_model == 2048 and be.cfg.num_layers == 22
           and be.cfg.dtype == "bfloat16", "full-width tinyllama config")
     obs = MetricsRegistry()
+    engine = EngineConfig(max_batch=8, prefill_budget=32,
+                          decode_steps=decode_steps, spec_depth_max=spec)
     for k in pa.launches:
         pa.launches[k] = 0
     t0 = time.perf_counter()
-    summ = run(ExperimentSpec(
-        scheduler="gmg", workload=WorkloadSpec(**WORKLOAD),
-        engine=EngineConfig(max_batch=8, prefill_budget=32,
-                            decode_steps=decode_steps),
-        backend=BackendSpec(kind=be), telemetry=TelemetrySpec(obs=obs)))
+    if motifs:
+        gen = WorkloadGen(WorkloadSpec(**WORKLOAD))
+        singles, dags = gen.generate()
+        for r in singles[::3]:
+            r.meta["prompt_tokens"] = (MOTIF * r.prompt_len)[:r.prompt_len]
+        eng = ServeEngine(be, make_scheduler(scheduler), engine,
+                          workload=gen, obs=obs)
+        eng.load(singles, dags)
+        summ = summarize(scheduler, eng.run(), ServiceModel(), eng.now,
+                         n_admitted=eng.submitted_count, shed=eng.shed,
+                         spec_proposed=eng.spec_proposed,
+                         spec_accepted=eng.spec_accepted)
+    else:
+        summ = run(ExperimentSpec(
+            scheduler=scheduler, workload=WorkloadSpec(**WORKLOAD),
+            engine=engine, backend=BackendSpec(kind=be),
+            telemetry=TelemetrySpec(obs=obs)))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(pa.launches)
     digest = stream_digest(be)
     tokens = [t for toks in be.generated.values() for t in toks]
-    print(f"  fused={fused} decode_steps={decode_steps}: finished "
+    print(f"  {scheduler} fused={fused} decode_steps={decode_steps} "
+          f"spec={spec} temperature={temperature}"
+          f"{' (motif prompts)' if motifs else ''}: finished "
           f"{summ.n_finished}, goodput {summ.goodput_frac:.3f}, "
           f"{summ.throughput_tok_s:.1f} tok/s (engine clock), "
           f"{len(tokens)} tokens in {wall:.2f} s wall, launches {counts}, "
-          f"decode forwards {be.n_decode_forwards}, digest {digest}")
+          f"decode forwards {be.n_decode_forwards}, verify forwards "
+          f"{be.n_verify_forwards}, spec proposed {summ.spec_proposed} "
+          f"accepted {summ.spec_accepted}, digest {digest}")
     print(f"    engine makespan {summ.makespan:.3f} s; backend device "
           f"{obs.value_of('torch_device_seconds_total'):.3f} s, host "
           f"{obs.value_of('torch_host_seconds_total'):.3f} s; "
@@ -302,39 +449,82 @@ def batch_invariance(torch, be, rows) -> dict:
     return result
 
 
-def decode_breakdown(torch, be) -> None:
-    """Where one full-width decode forward's time goes: the serving path's
-    call shape (64 lanes, 8 of them live at context 48), timed on the
-    host clock and with the profiler's device time by kernel."""
+def verify_vs_decode(torch, be, rows) -> None:
+    """Full-width ``verify_paged`` logits bitwise equal to ``decode_paged``
+    logits at the same positions: ``rows`` lanes, 8 live at contexts 5-52
+    with window widths 1-5, the rest padding at width 0.  Each live lane's
+    prompt is prefilled twice, on two sets of pages; one copy is verified
+    in one forward, the other decoded row by row (rows past a lane's width
+    on the all-scrap table, as the plain verify version does)."""
+    g = torch.Generator(device="cuda").manual_seed(4)
+    ctxs = [5, 16, 17, 33, 40, 48, 49, 52]
+    widths = [5, 1, 4, 5, 2, 5, 3, 5]
+    W, dev = max(widths), "cuda"
+    per = -(-(max(ctxs) + W) // be.page)
+
+    def ints(*shape):
+        return torch.randint(0, be.cfg.vocab_size, shape, generator=g,
+                             device=dev, dtype=torch.int32)
+
+    scrap = torch.full((rows, be.n_max), be.scrap, dtype=torch.int32,
+                       device=dev)
+    tabs = [scrap.clone(), scrap.clone()]
+    for i, c in enumerate(ctxs):
+        prompt = torch.zeros((1, rows), dtype=torch.int32, device=dev)
+        prompt[0, :c - 1] = ints(c - 1)
+        for k in (0, 1):
+            first = (200 + (2 * i + k) * per)
+            tabs[k][i, :per] = torch.arange(first, first + per,
+                                            dtype=torch.int32, device=dev)
+            be.pages = be.model.prefill_paged(be.params, be.pages, prompt, 0,
+                                              tabs[k][i], c - 1)
+    toks = torch.zeros((rows, W), dtype=torch.int32, device=dev)
+    toks[:len(ctxs)] = ints(len(ctxs), W)
+    pos0 = torch.zeros(rows, dtype=torch.int32, device=dev)
+    pos0[:len(ctxs)] = torch.tensor(ctxs, dtype=torch.int32, device=dev) - 1
+    wid = torch.zeros(rows, dtype=torch.int32, device=dev)
+    wid[:len(ctxs)] = torch.tensor(widths, dtype=torch.int32, device=dev)
+    lv, be.pages = be.model.verify_paged(be.params, be.pages, toks, pos0, wid,
+                                         tabs[0])
+    same = total = 0
+    worst = 0.0
+    for s in range(W):
+        tab_s = torch.where(wid[:, None] > s, tabs[1], scrap)
+        ld, be.pages = be.model.decode_paged(
+            be.params, be.pages, toks[:, s:s + 1].contiguous(), pos0 + s,
+            tab_s, fused=True)
+        for b in range(len(ctxs)):
+            if s < widths[b]:
+                total += 1
+                same += bool(torch.equal(lv[b, s], ld[b]))
+                worst = max(worst, (lv[b, s] - ld[b]).abs().max().item())
+    check(tuple(lv.shape) == (rows, W, be.cfg.vocab_size)
+          and bool(torch.isfinite(lv).all()), "verify logits")
+    print(f"  verify vs decode logits at full width, {rows} lanes (8 live, "
+          f"W={W}): {same}/{total} live rows bitwise equal, max|diff| "
+          f"{worst:.3e}")
+    check(same == total, "verify logits differ from decode logits")
+
+
+def profiled(torch, fn, reps=10):
+    """One call's time: the host clock over ``reps`` calls ending in a
+    synchronise (after three warm-up calls), and the profiler's device
+    time by kernel over ``reps`` more.  Returns (wall ms, device-busy ms,
+    kernels, [(ms, launches, name)] largest first), all per call."""
     from torch.profiler import ProfilerActivity, profile
 
-    B, live, ctx = 64, 8, 48
-    tok = torch.zeros((B, 1), dtype=torch.int32, device="cuda")
-    pos = torch.zeros(B, dtype=torch.int32, device="cuda")
-    pos[:live] = ctx - 1
-    tabs = torch.full((B, be.n_max), be.scrap, dtype=torch.int32,
-                      device="cuda")
-    tabs[:live, :ctx // be.page] = torch.arange(
-        live * (ctx // be.page), dtype=torch.int32,
-        device="cuda").reshape(live, -1)
-
-    def fwd():
-        return be.model.decode_paged(be.params, be.pages, tok, pos, tabs,
-                                     fused=True)
-
     for _ in range(3):
-        fwd()
+        fn()
     torch.cuda.synchronize()
-    reps = 10
     t0 = time.perf_counter()
     for _ in range(reps):
-        fwd()
+        fn()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) / reps * 1e3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
-            fwd()
+            fn()
         torch.cuda.synchronize()
 
     def dev_us(e):
@@ -345,13 +535,58 @@ def decode_breakdown(torch, be) -> None:
                and not e.key.startswith(("aten::", "cuda", "Memcpy",
                                          "Memset"))]
     busy_ms = sum(dev_us(e) for e in kernels) / reps / 1e3
-    print(f"  decode forward, {B} lanes ({live} live at ctx {ctx}): wall "
-          f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
-          f"(idle share {1 - busy_ms / wall_ms:.3f}), "
-          f"{sum(e.count for e in kernels) / reps:.0f} kernels")
-    for e in sorted(kernels, key=dev_us, reverse=True)[:8]:
-        print(f"    {dev_us(e) / reps / 1e3:.4f} ms x{e.count // reps} "
-              f"{e.key[:90]}")
+    top = [(dev_us(e) / reps / 1e3, e.count // reps, e.key)
+           for e in sorted(kernels, key=dev_us, reverse=True)]
+    return wall_ms, busy_ms, sum(e.count for e in kernels) / reps, top
+
+
+def sampler_breakdown(torch) -> None:
+    """What seeded sampling at temperature > 0 adds to a decode step: one
+    ``sample_device`` call on the decode call's 64 rows of 32000 f32
+    logits at temperature 0.8, top_k 50 (the threefry key chain, the
+    Gumbel draw, top-k and argmax in plain torch ops)."""
+    from repro_torch.serving.backend import Sampler
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    logits = torch.randn((64, 32000), generator=g, device="cuda")
+    rids = torch.arange(64, dtype=torch.int32, device="cuda")
+    pos = torch.full((64,), 47, dtype=torch.int32, device="cuda")
+    sampler = Sampler(temperature=0.8, top_k=50, seed=0)
+    wall_ms, busy_ms, n, _ = profiled(
+        torch, lambda: sampler.sample_device(logits, rids, pos))
+    print(f"  sampler at temperature 0.8, top_k 50, 64 rows x 32000: wall "
+          f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, {n:.0f} kernels "
+          f"per call (greedy: 1 argmax)")
+
+
+def decode_breakdown(torch, be) -> None:
+    """Where one full-width forward's time goes at the serving path's call
+    shape, 64 lanes with 8 live at context 48: a decode forward, and a
+    verify forward with a window of 5 rows on each live lane."""
+    B, live, ctx, W = 64, 8, 48, 5
+    tok = torch.zeros((B, W), dtype=torch.int32, device="cuda")
+    pos = torch.zeros(B, dtype=torch.int32, device="cuda")
+    pos[:live] = ctx - 1
+    wid = torch.zeros(B, dtype=torch.int32, device="cuda")
+    wid[:live] = W
+    tabs = torch.full((B, be.n_max), be.scrap, dtype=torch.int32,
+                      device="cuda")
+    per = -(-(ctx + W) // be.page)
+    tabs[:live, :per] = torch.arange(live * per, dtype=torch.int32,
+                                     device="cuda").reshape(live, -1)
+    tok1 = tok[:, :1].contiguous()
+    calls = {
+        "decode forward": lambda: be.model.decode_paged(
+            be.params, be.pages, tok1, pos, tabs, fused=True),
+        f"verify forward (W={W})": lambda: be.model.verify_paged(
+            be.params, be.pages, tok, pos, wid, tabs)}
+    for name, fn in calls.items():
+        wall_ms, busy_ms, n, top = profiled(torch, fn)
+        print(f"  {name}, {B} lanes ({live} live at ctx {ctx}): wall "
+              f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms (idle share "
+              f"{1 - busy_ms / wall_ms:.3f}), {n:.0f} kernels")
+        for ms, count, key in top[:8]:
+            print(f"    {ms:.4f} ms x{count} {key[:90]}")
 
 
 def main() -> int:
@@ -392,7 +627,7 @@ def main() -> int:
         c = case(torch, B, 32, 4, 64, 16, ctxs, torch.bfloat16, seed=B)
         errs = check_kernels(torch, pa, c, 2e-2,
                              f"bf16 B={B} H=32 KV=4 D=64 ctx<={max(ctxs)}")
-        main_err = {k: max(v, errs[k]) for k, v in main_err.items()}
+        main_err.update({k: max(main_err[k], v) for k, v in errs.items()})
     # the serving path's own call shapes: 8 live lanes at contexts across
     # page edges, beside padding lanes on the all-scrap table (a batch of
     # 5 pads to 8 lanes; 64 lanes is the widest padding checked)
@@ -402,7 +637,7 @@ def main() -> int:
         errs = check_kernels(torch, pa, c, 2e-2,
                              f"bf16 B={B} ({live} live, ctx<=52) H=32 KV=4 "
                              f"D=64 n_max=16", live=live)
-        main_err = {k: max(v, errs[k]) for k, v in main_err.items()}
+        main_err.update({k: max(main_err[k], v) for k, v in errs.items()})
     sweep = [(3, 6, 3, 64, 16, [1, 40, 200]),       # GQA, heads not 2^k
              (2, 8, 1, 128, 16, [77, 300]),         # MQA, D=128
              (2, 16, 4, 16, 8, [5, 64]),            # D=16, page 8
@@ -411,6 +646,7 @@ def main() -> int:
         c = case(torch, B, H, KV, D, page, ctxs, torch.float32, seed=100 + i)
         check_kernels(torch, pa, c, 1e-5,
                       f"f32 B={B} H={H} KV={KV} D={D} page={page}")
+    main_err["fused_verify_attention"] = check_verify_all(torch, pa)
 
     # 4. end to end at full width
     print("serving tinyllama-1.1b (full width, bf16, random weights), gmg:")
@@ -428,7 +664,9 @@ def main() -> int:
     invariant = batch_invariance(torch, be, ROWS)
     check(invariant["fixed"], "results depend on the batch grouping or the "
           "prefill chunking under the backend's fixed row counts")
+    verify_vs_decode(torch, be, ROWS)
     decode_breakdown(torch, be)
+    sampler_breakdown(torch)
     del be, logits
     torch.cuda.empty_cache()
     check(counts_f["fused_decode_attention"] > 0,
@@ -446,6 +684,45 @@ def main() -> int:
           f"unfused n=1 {dig_u1}")
     check(dig_f4 == dig_f1, "decode_steps=4 changed the token streams")
     check(dig_u1 == dig_f1, "fused=False changed the token streams")
+
+    # 4b. speculative decoding: vllm grants every lane the depth ceiling;
+    # streams must equal plain decoding's at temperature 0 and 0.8
+    print("speculative decoding, full width:")
+    digests, spec = {}, None
+    for temperature in (0.0, 0.8):
+        for depth, n in ((0, 1), (4, 1), (0, 4), (4, 4)):
+            if temperature == 0.0 and (depth, n) == (0, 4):
+                continue          # the gmg runs above cover n=4 without spec
+            be, summ, counts, dig = serve(
+                torch, pa, decode_steps=n, scheduler="vllm", spec=depth,
+                temperature=temperature, motifs=True)
+            digests[temperature, depth, n] = dig
+            if (temperature, depth, n) == (0.0, 4, 1):
+                spec = (counts, be.n_verify_forwards, summ)
+            if depth:
+                check(summ.spec_proposed > 0, "the drafter proposed nothing")
+                check(counts["fused_verify_attention"] > 0,
+                      "fused_verify_attention never launched on the "
+                      "speculative path")
+            del be
+            torch.cuda.empty_cache()
+    be, summ_g, _, dig_g4 = serve(torch, pa, scheduler="gmg", spec=4)
+    del be
+    torch.cuda.empty_cache()
+    counts_v, fwd_v, summ_v = spec
+    print(f"  digests: vllm t=0 {digests[0.0, 0, 1]} (spec 0), "
+          f"{digests[0.0, 4, 1]} (spec 4), {digests[0.0, 4, 4]} (spec 4, "
+          f"n=4); gmg spec 4 {dig_g4} (spec 0 {dig_f1}); vllm t=0.8 "
+          f"{digests[0.8, 0, 1]} (spec 0), {digests[0.8, 4, 1]} (spec 4), "
+          f"{digests[0.8, 0, 4]} (spec 0, n=4), {digests[0.8, 4, 4]} (spec 4, "
+          f"n=4); spec accepted {summ_v.spec_accepted} of "
+          f"{summ_v.spec_proposed} proposed (vllm t=0 spec 4), gmg "
+          f"{summ_g.spec_accepted} of {summ_g.spec_proposed}")
+    for (temperature, depth, n), dig in digests.items():
+        check(dig == digests[temperature, 0, 1],
+              f"spec {depth}, decode_steps {n} changed the token streams at "
+              f"temperature {temperature}")
+    check(dig_g4 == dig_f1, "spec 4 changed the gmg token streams")
 
     # 5. times at the main path's shapes: B=8 lanes at ctx 512, bf16
     flush = torch.empty(32 * 2**20, dtype=torch.float32, device="cuda")
@@ -480,26 +757,58 @@ def main() -> int:
             lambda: pa.paged_attention(*args_a),
             lambda: pa.paged_attention_ref(*args_a),
             counts_u["paged_attention"], fwd_u)}
+    # the verify kernel at B=8, W=5, the last row at ctx 512
+    W = 5
+    cv = verify_case(torch, B, W, H, KV, D, page, [ctx - W + 1] * B, [W] * B,
+                     torch.bfloat16, seed=8)
+    args_v = (cv["q"], cv["k_new"], cv["v_new"], cv["k_pages"],
+              cv["v_pages"], cv["tables"], cv["pos0"], cv["widths"])
+    tab = cv["tables"].long()[:, :ctx // page]
+    kg = cv["k_pages"][tab].reshape(B, ctx, KV, D).transpose(1, 2)
+    vg = cv["v_pages"][tab].reshape(B, ctx, KV, D).transpose(1, 2)
+    kg = kg.repeat_interleave(H // KV, dim=1).contiguous()
+    vg = vg.repeat_interleave(H // KV, dim=1).contiguous()
+    qv = cv["q"].transpose(1, 2).contiguous()          # (B, H, W, D)
+    # row s sees keys up to pos0 + s: causal within the window
+    mask = (torch.arange(ctx, device="cuda")[None, :]
+            <= torch.arange(ctx - W, ctx, device="cuda")[:, None])
+    lib_v_ms = median_ms(torch, lambda: sdpa(qv, kg, vg, attn_mask=mask),
+                         flush)
+    bytes_of["fused_verify_attention"] = (
+        kv_bytes + 2 * B * W * H * D * e + 4 * B * W * KV * D * e
+        + B * cv["tables"].shape[1] * 4 + 2 * B * 4)
+    timed["fused_verify_attention"] = (
+        lambda: pa.fused_verify_attention(*args_v),
+        lambda: pa.fused_verify_attention_ref(*args_v),
+        counts_v["fused_verify_attention"], fwd_v)
+    ops_of = {"paged_attention": ops, "fused_decode_attention": ops,
+              # row s attends ctx - W + 1 + s tokens
+              "fused_verify_attention": sum(4 * B * (ctx - W + 1 + s) * H * D
+                                            for s in range(W))}
+    lib_of = {"paged_attention": lib_ms, "fused_decode_attention": lib_ms,
+              "fused_verify_attention": lib_v_ms}
     records = []
     print(f"times (B={B}, H={H}, KV={KV}, D={D}, page={page}, ctx={ctx}, "
-          f"bf16, L2 flushed; median of CUDA events):")
+          f"bf16, L2 flushed; median of CUDA events; the verify kernel with "
+          f"W={W} rows per lane, the last at ctx {ctx}):")
     for name, (kern, plain, launches, forwards) in timed.items():
         ms = median_ms(torch, kern, flush)
         plain_ms = median_ms(torch, plain, flush)
         t_bytes = bytes_of[name] / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / F32_FLOPS * 1e3
+        t_ops = ops_of[name] / F32_FLOPS * 1e3
         bound_ms = max(t_bytes, t_ops)
         per_step = launches / forwards
         print(f"  {name}: kernel {ms:.4f} ms, bound {bound_ms:.5f} ms "
               f"({bytes_of[name]} B / 3.35 TB/s), plain {plain_ms:.4f} ms, "
-              f"SDPA {lib_ms:.4f} ms, {launches} launches = {per_step:g} per "
-              f"decode micro-step")
+              f"SDPA {lib_of[name]:.4f} ms, {launches} launches = "
+              f"{per_step:g} per {'verify' if 'verify' in name else 'decode'}"
+              f" forward")
         records.append(dict(
             name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
             launches=launches, max_abs_err=main_err[name], ms=ms,
             plain_ms=plain_ms, bound_ms=bound_ms,
             bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=lib_ms))
+            library_ms=lib_of[name]))
 
     # 6. kernel records, then 7. the device
     print(json.dumps({"kernels": records}))

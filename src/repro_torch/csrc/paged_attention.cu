@@ -3,6 +3,9 @@
 // Replaces the TPU (Pallas) kernels of src/repro/kernels/paged_attention.py:
 //   paged_attention_launch         <- paged_attention        (body _kernel)
 //   fused_decode_attention_launch  <- fused_decode_attention (body _fused_kernel)
+//   fused_verify_attention_launch  <- fused_verify_attention (its chained
+//                                     lowering _verify_unrolled; the one-pass
+//                                     _verify_multirow / _verify_kernel)
 //
 // What bounds it: decode attention is bound by memory on this card.  Each
 // lane reads ctx*KV*D*2 elements of K and V for about 4*ctx*H*D flops, near
@@ -20,12 +23,26 @@
 // kv-head h); the online-softmax state (m, l, acc) of its G heads lives in
 // f32 shared memory and the output is acc / max(l, 1e-30).
 //
-// Both entry points run the same __device__ routine `attend`, so for equal
+// All entry points run the same __device__ routine `attend`, so for equal
 // pools their outputs are bitwise equal.  The fused entry point first writes
 // its kv-head's slice of the lane's new K/V row into the one target slot,
 // then synchronises the block and attends; it writes nothing else.  Retired
 // and padded lanes carry all-scrap tables, so several blocks may write the
 // scrap page at once; no live table names that page, so the race is benign.
+//
+// The verify entry point (speculative decoding) takes W window rows per
+// lane: q (B,W,H,D), new K/V (B,W,KV,D), pos0 and widths (B,).  Its block
+// writes its kv-head's slice of every live row s < widths[b] into slot
+// pos0+s, synchronises, then runs `attend` once per live row on query row
+// (b, s) with ctx = pos0+s+1.  Each live row is thus bitwise the fused
+// decode step at that position, which is what keeps speculative token
+// streams equal to plain decoding.  Rows at or past the width write nothing
+// and their output rows are zero.  What bounds it: W rows of f32
+// arithmetic over the same pages, so at W=5, ctx 512 its operations (2.5 us
+// at 67 TFLOP/s) outweigh its bytes (1.4 us at 3.35 TB/s).  This first
+// design re-reads the lane's pages once per row (W passes over them); one
+// page pass for all W rows that keeps each row's reduction order is later
+// work.
 //
 // Each C entry point returns cudaGetLastError() as an int (0 = success).
 
@@ -116,12 +133,15 @@ __device__ void stage(const T* kpool, const T* vpool, const int* table, int t0,
   }
 }
 
-// GQA attention of lane b's query heads h*G .. h*G+G-1 over its first ctx
-// tokens.  The pools are read with plain loads (no read-only cache path):
-// in the fused kernel this block has just written one of their rows.
+// GQA attention of query row `row` (its heads h*G .. h*G+G-1) over the
+// first ctx tokens named by `table`; q and out are (rows, H, D).  The decode
+// kernels pass the lane as the row, the verify kernel lane*W + s.  The pools
+// are read with plain loads (no read-only cache path): in the fused kernels
+// this block has just written some of their rows.  Ends without a barrier:
+// a caller that runs it again must synchronise the block first.
 template <typename T>
 __device__ void attend(const T* q, const T* kpool, const T* vpool,
-                       const int* table, int ctx, T* out, int b, int h,
+                       const int* table, int ctx, T* out, int row, int h,
                        const Geometry& geo, float* smem) {
   const int G = geo.H / geo.KV, D = geo.D, Dk = D + 1, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -134,7 +154,7 @@ __device__ void attend(const T* q, const T* kpool, const T* vpool,
   float* l_s = m_s + G;
   float* c_s = l_s + G;
 
-  const T* qb = q + ((size_t)b * geo.H + (size_t)h * G) * D;
+  const T* qb = q + ((size_t)row * geo.H + (size_t)h * G) * D;
   for (int e = tid; e < G * D; e += blockDim.x) {
     q_s[e] = to_f32(qb[e]);
     acc[e] = 0.f;
@@ -193,7 +213,7 @@ __device__ void attend(const T* q, const T* kpool, const T* vpool,
     __syncthreads();
   }
 
-  T* ob = out + ((size_t)b * geo.H + (size_t)h * G) * D;
+  T* ob = out + ((size_t)row * geo.H + (size_t)h * G) * D;
   for (int e = tid; e < G * D; e += blockDim.x)
     ob[e] = from_f32<T>(acc[e] / fmaxf(l_s[e / D], 1e-30f));
 }
@@ -209,6 +229,22 @@ __global__ void __launch_bounds__(kThreads)
             b, h, geo, smem);
 }
 
+// Write kv-head h's slice of one new K/V row (D elements at src) into token
+// slot pos of the lane's table; a slot past the table is not written.
+template <typename T>
+__device__ void put_row(const T* k_new, const T* v_new, size_t src, T* kpool,
+                        T* vpool, const int* table, int pos, int h,
+                        const Geometry& geo) {
+  const int slot = pos / geo.page;
+  if (slot >= geo.n_max) return;
+  const size_t row =
+      ((size_t)table[slot] * geo.page + pos % geo.page) * geo.KV + h;
+  for (int d = threadIdx.x; d < geo.D; d += blockDim.x) {
+    kpool[row * geo.D + d] = k_new[src + d];
+    vpool[row * geo.D + d] = v_new[src + d];
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     fused_decode_kernel(const T* q, const T* k_new, const T* v_new, T* kpool,
@@ -218,19 +254,39 @@ __global__ void __launch_bounds__(kThreads)
   const int b = blockIdx.x, h = blockIdx.y;
   const int* table = tables + (size_t)b * geo.n_max;
   const int pos = positions[b];
-  const int slot = pos / geo.page;
-  if (slot < geo.n_max) {
-    const size_t row =
-        ((size_t)table[slot] * geo.page + pos % geo.page) * geo.KV + h;
-    const size_t src = ((size_t)b * geo.KV + h) * geo.D;
-    for (int d = threadIdx.x; d < geo.D; d += blockDim.x) {
-      kpool[row * geo.D + d] = k_new[src + d];
-      vpool[row * geo.D + d] = v_new[src + d];
-    }
-  }
+  put_row<T>(k_new, v_new, ((size_t)b * geo.KV + h) * geo.D, kpool, vpool,
+             table, pos, h, geo);
   // the block's global writes are visible to all its threads after this
   __syncthreads();
   attend<T>(q, kpool, vpool, table, pos + 1, out, b, h, geo, smem);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    fused_verify_kernel(const T* q, const T* k_new, const T* v_new, T* kpool,
+                        T* vpool, const int* tables, const int* pos0,
+                        const int* widths, T* out, int W, Geometry geo) {
+  extern __shared__ float smem[];
+  const int b = blockIdx.x, h = blockIdx.y;
+  const int* table = tables + (size_t)b * geo.n_max;
+  const int p0 = pos0[b];
+  const int width = max(0, min(widths[b], W));
+  for (int s = 0; s < width; ++s)
+    put_row<T>(k_new, v_new, (((size_t)b * W + s) * geo.KV + h) * geo.D,
+               kpool, vpool, table, p0 + s, h, geo);
+  __syncthreads();
+  const int G = geo.H / geo.KV;
+  for (int s = 0; s < W; ++s) {
+    if (s < width) {
+      if (s > 0) __syncthreads();  // the previous row's reads of smem
+      attend<T>(q, kpool, vpool, table, p0 + s + 1, out, b * W + s, h, geo,
+                smem);
+    } else {
+      T* ob = out + (((size_t)b * W + s) * geo.H + (size_t)h * G) * geo.D;
+      for (int e = threadIdx.x; e < G * geo.D; e += blockDim.x)
+        ob[e] = from_f32<T>(0.f);
+    }
+  }
 }
 
 template <typename Kernel>
@@ -264,6 +320,21 @@ int launch_fused(const void* q, const void* k_new, const void* v_new,
   fused_decode_kernel<T><<<dim3(B, geo.KV), kThreads, smem, stream>>>(
       (const T*)q, (const T*)k_new, (const T*)v_new, (T*)kp, (T*)vp,
       (const int*)tables, (const int*)pos, (T*)out, geo);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_verify(const void* q, const void* k_new, const void* v_new,
+                  void* kp, void* vp, const void* tables, const void* pos0,
+                  const void* widths, void* out, int B, int W,
+                  const Geometry& geo, cudaStream_t stream) {
+  const size_t smem = smem_bytes(geo.H / geo.KV, geo.D);
+  cudaError_t err = allow_smem(fused_verify_kernel<T>, smem);
+  if (err != cudaSuccess) return (int)err;
+  fused_verify_kernel<T><<<dim3(B, geo.KV), kThreads, smem, stream>>>(
+      (const T*)q, (const T*)k_new, (const T*)v_new, (T*)kp, (T*)vp,
+      (const int*)tables, (const int*)pos0, (const int*)widths, (T*)out, W,
+      geo);
   return (int)cudaGetLastError();
 }
 
@@ -306,4 +377,20 @@ extern "C" int fused_decode_attention_launch(
                                        (cudaStream_t)stream);
   return launch_fused<float>(q, k_new, v_new, k_pages, v_pages, block_tables,
                              positions, out, B, geo, (cudaStream_t)stream);
+}
+
+extern "C" int fused_verify_attention_launch(
+    const void* q, const void* k_new, const void* v_new, void* k_pages,
+    void* v_pages, const void* block_tables, const void* pos0,
+    const void* widths, void* out, int B, int W, int H, int KV, int D,
+    int page, int n_max, int bf16, float scale, void* stream) {
+  const Geometry geo{H, KV, D, page, n_max, scale,
+                     vec_ok(k_pages, v_pages, D, bf16 ? 2 : 4)};
+  if (bf16)
+    return launch_verify<__nv_bfloat16>(q, k_new, v_new, k_pages, v_pages,
+                                        block_tables, pos0, widths, out, B, W,
+                                        geo, (cudaStream_t)stream);
+  return launch_verify<float>(q, k_new, v_new, k_pages, v_pages, block_tables,
+                              pos0, widths, out, B, W, geo,
+                              (cudaStream_t)stream);
 }

@@ -5,13 +5,18 @@ k/v (P, page, KV, D), per-sequence block tables (B, n_max) int32, token i
 of a sequence at pool[table[i // page], i % page].  Pool index P-1 is the
 scrap page that padded and retired rows write into; no live table names it.
 
-Two kernels (``csrc/paged_attention.cu``), each beside a plain PyTorch
+Three kernels (``csrc/paged_attention.cu``), each beside a plain PyTorch
 version of the same function:
 
   ``paged_attention``         attend only, given context lengths
                               (plain: ``paged_attention_ref``)
   ``fused_decode_attention``  append this step's K/V row, then attend
                               (plain: ``fused_decode_attention_ref``)
+  ``fused_verify_attention``  speculative verification: append W window
+                              rows per lane, then attend each row under its
+                              own causal length (plain:
+                              ``fused_verify_attention_ref``, W chained
+                              ``fused_decode_attention_ref`` calls)
 
 A wrapper checks its arguments, then takes the plain version for tensors
 on the CPU and launches the kernel for tensors on a CUDA device; there is
@@ -32,7 +37,8 @@ from repro_torch.kernels import build
 NEG_INF = -1e30
 
 # kernel launches per wrapper (plain versions are not counted)
-launches: Dict[str, int] = {"paged_attention": 0, "fused_decode_attention": 0}
+launches: Dict[str, int] = {"paged_attention": 0, "fused_decode_attention": 0,
+                            "fused_verify_attention": 0}
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _lib = None
@@ -49,6 +55,9 @@ def _kernels() -> ctypes.CDLL:
         lib.fused_decode_attention_launch.argtypes = (
             [p] * 8 + [i] * 7 + [ctypes.c_float, p])
         lib.fused_decode_attention_launch.restype = i
+        lib.fused_verify_attention_launch.argtypes = (
+            [p] * 9 + [i] * 8 + [ctypes.c_float, p])
+        lib.fused_verify_attention_launch.restype = i
         _lib = lib
     return _lib
 
@@ -145,15 +154,41 @@ def fused_decode_attention_ref(q, k_new, v_new, k_pages, v_pages,
     return out, kp, vp
 
 
+def fused_verify_attention_ref(q, k_new, v_new, k_pages, v_pages,
+                               block_tables, pos0, widths, *, scale=None):
+    """Plain version of ``fused_verify_attention``, as the reference's
+    ``_verify_unrolled``: W chained ``fused_decode_attention_ref`` calls
+    through the pools, row s at positions pos0 + s.  Rows at or past a
+    lane's width run on the all-scrap table, so their K/V lands on the
+    scrap page and their outputs are garbage the caller discards.
+    Returns (out (B, W, H, D), k_pages, v_pages)."""
+    W = q.shape[1]
+    scrap = torch.full_like(block_tables, k_pages.shape[0] - 1)
+    outs = []
+    for s in range(W):
+        tab_s = torch.where(widths[:, None] > s, block_tables, scrap)
+        o, k_pages, v_pages = fused_decode_attention_ref(
+            q[:, s], k_new[:, s], v_new[:, s], k_pages, v_pages, tab_s,
+            pos0 + s, scale=scale)
+        outs.append(o)
+    return torch.stack(outs, dim=1), k_pages, v_pages
+
+
 # ---------------------------------------------------------------------------
 # wrappers: check, then plain version on the CPU or kernel on the card
 # ---------------------------------------------------------------------------
-def _check(q, k_pages, v_pages, block_tables, lens, rows=()):
-    """Validate a decode-attention call; ``rows`` are the (B, KV, D) new
-    K/V entries of the fused call.  Raises ValueError."""
+def _check(q, k_pages, v_pages, block_tables, lens, rows=(), widths=None):
+    """Validate a decode-attention call; ``rows`` are the new K/V entries of
+    a fused call, (B, KV, D).  With ``widths`` ((B,) int32) it is a verify
+    call: q is (B, W, H, D) and the rows (B, W, KV, D).  Raises
+    ValueError."""
     named = dict(q=q, k_pages=k_pages, v_pages=v_pages,
                  block_tables=block_tables, lens=lens)
     named.update(zip(("k_new", "v_new"), rows))
+    lead = 1
+    if widths is not None:
+        named["widths"] = widths
+        lead = 2
     for name, t in named.items():
         if not isinstance(t, torch.Tensor):
             raise ValueError(f"{name} must be a tensor, got {type(t)}")
@@ -161,10 +196,11 @@ def _check(q, k_pages, v_pages, block_tables, lens, rows=()):
             raise ValueError(f"{name} must be contiguous")
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-    if q.dim() != 3 or k_pages.dim() != 4:
-        raise ValueError(f"q must be (B,H,D) and pools (P,page,KV,D); got "
+    if q.dim() != lead + 2 or k_pages.dim() != 4:
+        want = "(B,W,H,D)" if widths is not None else "(B,H,D)"
+        raise ValueError(f"q must be {want} and pools (P,page,KV,D); got "
                          f"{tuple(q.shape)} and {tuple(k_pages.shape)}")
-    B, H, D = q.shape
+    B, H, D = q.shape[0], q.shape[-2], q.shape[-1]
     P, page, KV, Dk = k_pages.shape
     if v_pages.shape != k_pages.shape or Dk != D or KV == 0 or H % KV:
         raise ValueError(f"pools {tuple(k_pages.shape)}/"
@@ -172,7 +208,7 @@ def _check(q, k_pages, v_pages, block_tables, lens, rows=()):
                          f"{tuple(q.shape)} (need equal pools, same D, "
                          "KV dividing H)")
     for name, t in named.items():
-        if name in ("block_tables", "lens"):
+        if name in ("block_tables", "lens", "widths"):
             if t.dtype != torch.int32:
                 raise ValueError(f"{name} must be int32, got {t.dtype}")
         elif t.dtype != q.dtype:
@@ -182,20 +218,23 @@ def _check(q, k_pages, v_pages, block_tables, lens, rows=()):
     if block_tables.dim() != 2 or block_tables.shape[0] != B:
         raise ValueError(f"block_tables must be (B={B}, n_max), got "
                          f"{tuple(block_tables.shape)}")
-    if tuple(lens.shape) != (B,):
-        raise ValueError(f"lengths must be ({B},), got {tuple(lens.shape)}")
+    for name in ("lens", "widths"):
+        t = named.get(name)
+        if t is not None and tuple(t.shape) != (B,):
+            raise ValueError(f"{name} must be ({B},), got {tuple(t.shape)}")
     for name, t in zip(("k_new", "v_new"), rows):
-        if tuple(t.shape) != (B, KV, D):
-            raise ValueError(f"{name} must be ({B}, {KV}, {D}), got "
-                             f"{tuple(t.shape)}")
+        if tuple(t.shape) != q.shape[:lead] + (KV, D):
+            raise ValueError(f"{name} must be {q.shape[:lead] + (KV, D)}, "
+                             f"got {tuple(t.shape)}")
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel for device {q.device}")
 
 
 def _geometry(q, k_pages, block_tables, scale):
-    B, H, D = q.shape
+    """(H, KV, D, page, n_max, bf16, scale) of the C entry points."""
+    H, D = q.shape[-2], q.shape[-1]
     _, page, KV, _ = k_pages.shape
-    return (B, H, KV, D, page, block_tables.shape[1],
+    return (H, KV, D, page, block_tables.shape[1],
             int(q.dtype == torch.bfloat16), float(scale or D ** -0.5))
 
 
@@ -214,7 +253,7 @@ def paged_attention(q, k_pages, v_pages, block_tables, ctx_lens, *,
         err = _kernels().paged_attention_launch(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             block_tables.data_ptr(), ctx_lens.data_ptr(), out.data_ptr(),
-            *_geometry(q, k_pages, block_tables, scale),
+            q.shape[0], *_geometry(q, k_pages, block_tables, scale),
             torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"paged_attention launch failed: CUDA error {err}")
@@ -246,10 +285,48 @@ def fused_decode_attention(q, k_new, v_new, k_pages, v_pages, block_tables,
             q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
             k_pages.data_ptr(), v_pages.data_ptr(), block_tables.data_ptr(),
             positions.data_ptr(), out.data_ptr(),
-            *_geometry(q, k_pages, block_tables, scale),
+            q.shape[0], *_geometry(q, k_pages, block_tables, scale),
             torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(
             f"fused_decode_attention launch failed: CUDA error {err}")
     launches["fused_decode_attention"] += 1
+    return out, k_pages, v_pages
+
+
+def fused_verify_attention(q, k_new, v_new, k_pages, v_pages, block_tables,
+                           pos0, widths, *, scale=None):
+    """Speculative verification in one launch: for each lane b, write the
+    K/V of window rows s < widths[b] at positions pos0[b] + s, then attend
+    query row s over its first pos0[b] + s + 1 tokens.
+
+    q: (B, W, H, D); k_new/v_new: (B, W, KV, D) in the pools' dtype; pos0:
+    (B,) int32, row 0's slot (the context length before the window);
+    widths: (B,) int32, live rows per lane (0 for padding lanes).  Each live
+    row's output is bitwise the ``fused_decode_attention`` kernel's at that
+    position.  Rows at or past the width write nothing; their output rows
+    are zero from the kernel and garbage from the plain version, and the
+    caller discards them.  The pools are updated in place.  Returns
+    (out (B, W, H, D), k_pages, v_pages)."""
+    _check(q, k_pages, v_pages, block_tables, pos0, rows=(k_new, v_new),
+           widths=widths)
+    if q.device.type == "cpu":
+        return fused_verify_attention_ref(q, k_new, v_new, k_pages, v_pages,
+                                          block_tables, pos0, widths,
+                                          scale=scale)
+    out = torch.empty_like(q)
+    if q.numel() == 0:
+        return out, k_pages, v_pages
+    with torch.cuda.device(q.device):
+        err = _kernels().fused_verify_attention_launch(
+            q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+            k_pages.data_ptr(), v_pages.data_ptr(), block_tables.data_ptr(),
+            pos0.data_ptr(), widths.data_ptr(), out.data_ptr(),
+            q.shape[0], q.shape[1], *_geometry(q, k_pages, block_tables,
+                                               scale),
+            torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(
+            f"fused_verify_attention launch failed: CUDA error {err}")
+    launches["fused_verify_attention"] += 1
     return out, k_pages, v_pages

@@ -1,7 +1,7 @@
 """GQA attention over a paged KV cache (the serving path of the reference's
 ``repro.models.attention``): chunked prefill in plain PyTorch ops, batched
-one-token decode through the paged-attention kernels.  Page pools are
-updated in place."""
+one-token decode and speculative verification through the paged-attention
+kernels.  Page pools are updated in place."""
 
 from __future__ import annotations
 
@@ -9,6 +9,7 @@ import torch
 
 from repro_torch.kernels.paged_attention import (NEG_INF,
                                                  fused_decode_attention,
+                                                 fused_verify_attention,
                                                  paged_attention, paged_gather,
                                                  paged_kv_append,
                                                  paged_kv_append_batch)
@@ -83,3 +84,34 @@ def gqa_decode_paged(x, p, cfg, pages, block_tables, positions, *,
                             scale=Dh ** -0.5)
     out = torch.einsum("bhk,hkd->bd", o.to(x.dtype), p["wo"])[:, None, :]
     return out, {"k": kp, "v": vp}
+
+
+def gqa_verify_paged(xs, p, cfg, pages, block_tables, pos0, widths):
+    """Speculative verification attention: W window rows per lane, one
+    ``fused_verify_attention`` launch.
+
+    xs: W slabs (B, 1, D), slab s holding window row s of every lane (row
+    0 the last accepted token, rows 1.. the drafts; rows at or past
+    ``widths[b]`` are padding).  pos0: (B,) int32, row 0's KV slot; rope
+    positions are pos0 + s.  Projections and rope run per slab, each in the
+    shape of a B-lane ``gqa_decode_paged`` call, so every row's q/k/v and
+    output projection are bitwise the decode step's at that position.
+    Returns (W slabs (B, 1, D), pages)."""
+    Dh = p["wq"].shape[2]
+    qs, ks, vs = [], [], []
+    for s, x in enumerate(xs):
+        q, k, v = _qkv(x, p)
+        if cfg.positional == "rope":
+            cos, sin = rope_tables((pos0 + s)[:, None], Dh, cfg.rope_theta)
+            q = apply_rope(q, cos, sin)
+            k = apply_rope(k, cos, sin)
+        qs.append(q[:, 0])
+        ks.append(k[:, 0])
+        vs.append(v[:, 0])
+    o, kp, vp = fused_verify_attention(
+        torch.stack(qs, dim=1), torch.stack(ks, dim=1),
+        torch.stack(vs, dim=1), pages["k"], pages["v"], block_tables, pos0,
+        widths, scale=Dh ** -0.5)
+    outs = [torch.einsum("bhk,hkd->bd", o[:, s].contiguous().to(x.dtype),
+                         p["wo"])[:, None, :] for s, x in enumerate(xs)]
+    return outs, {"k": kp, "v": vp}

@@ -151,6 +151,30 @@ class Model:
         logits = x[:, 0].float() @ self._head_f32(params["lm_head"])
         return logits[:, :self.cfg.vocab_size], pages
 
+    def verify_paged(self, params, pages, tokens, pos0, widths,
+                     block_tables):
+        """Speculative verification forward: score all W window positions
+        of every lane in one pass.  tokens (B, W) int32, row 0 the last
+        accepted token and rows 1.. the drafts (rows at or past
+        ``widths[b]`` are padding); pos0 (B,) int32, row 0's KV slot;
+        widths (B,) int32; block_tables (B, n_max) int32.  Returns
+        (logits (B, W, V) f32, pages), the pools written in place.
+
+        Every row-wise op runs on slabs of the B lanes' row s, the shape of
+        a B-lane ``decode_paged`` call, and attention goes through one
+        ``fused_verify_attention`` launch per layer; a live row's logits
+        are then bitwise the ``decode_paged`` logits of the same token at
+        the same position with the same B."""
+        tok = tokens.long()
+        x = [params["embed"][tok[:, s:s + 1]] for s in range(tok.shape[1])]
+        x, pages = stack_apply_paged(x, params, self.cfg, "verify", pages,
+                                     block_tables, pos0, widths)
+        head = self._head_f32(params["lm_head"])
+        logits = torch.stack(
+            [rms_norm(xs, params["final_norm"], self.cfg.norm_eps)[:, 0]
+             .float() @ head for xs in x], dim=1)
+        return logits[..., :self.cfg.vocab_size], pages
+
 
 def build_model(cfg: ModelConfig) -> Model:
     return Model(cfg)

@@ -1,11 +1,19 @@
 """Layer assembly for paged serving: attention + SwiGLU blocks, the prefix
 layers, then ``num_units`` repetitions of the unit pattern.  Unit
 parameters and page pools carry a leading ``num_units`` dim, as in the
-reference; a Python loop over units takes the place of ``lax.scan``."""
+reference; a Python loop over units takes the place of ``lax.scan``.
+
+Mode "verify" (speculative decoding) carries the hidden states as a list
+of W slabs (B, 1, d), slab s holding window row s of every lane, and runs
+every row-wise op (norms, projections, rope, MLP) once per slab.  GEMM and
+reduction libraries choose their summation order by shape, so a verify
+row then computes bitwise what a B-lane decode step computes for the same
+token at the same position; only attention sees the whole window."""
 
 from __future__ import annotations
 
-from repro_torch.models.attention import gqa_decode_paged, gqa_prefill_paged
+from repro_torch.models.attention import (gqa_decode_paged,
+                                         gqa_prefill_paged, gqa_verify_paged)
 from repro_torch.models.layers import mlp, rms_norm
 
 
@@ -17,6 +25,15 @@ def layer_apply_paged(x, lp, mixer, ffn, cfg, mode, pages, tables, pos,
     if ffn not in ("mlp", "none"):
         raise ValueError(f"paged serving supports 'mlp' FFNs only, got "
                          f"{ffn!r}")
+    if mode == "verify":
+        h = [rms_norm(xs, lp["ln1"], cfg.norm_eps) for xs in x]
+        mix_out, new_pages = gqa_verify_paged(h, lp, cfg, pages, tables, pos,
+                                              n)
+        x = [xs + m for xs, m in zip(x, mix_out)]
+        if ffn == "mlp":
+            x = [xs + mlp(rms_norm(xs, lp["ln2"], cfg.norm_eps), lp)
+                 for xs in x]
+        return x, new_pages
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     if mode == "prefill":
         mix_out, new_pages = gqa_prefill_paged(h, lp, cfg, pages, tables,
@@ -25,7 +42,8 @@ def layer_apply_paged(x, lp, mixer, ffn, cfg, mode, pages, tables, pos,
         mix_out, new_pages = gqa_decode_paged(h, lp, cfg, pages, tables, pos,
                                               fused=fused)
     else:
-        raise ValueError(f"unknown paged mode {mode!r} (prefill | decode)")
+        raise ValueError(f"unknown paged mode {mode!r} "
+                         "(prefill | decode | verify)")
     x = x + mix_out
     if ffn == "mlp":
         x = x + mlp(rms_norm(x, lp["ln2"], cfg.norm_eps), lp)
@@ -37,8 +55,10 @@ def stack_apply_paged(x, params, cfg, mode, pages, tables, pos, n=None,
     """mode "prefill": ``tables`` is one sequence's (n_max,) block table,
     ``pos`` the chunk's start offset, ``n`` the real chunk length (rows past
     it are padding).  mode "decode": ``tables`` is (B, n_max), ``pos`` the
-    per-sequence write positions (B,).  The pools are written in place.
-    Returns (x, pages)."""
+    per-sequence write positions (B,).  mode "verify": x is W slabs
+    (B, 1, d), ``tables`` (B, n_max), ``pos`` each lane's first-row
+    position pos0 (B,) and ``n`` its live window width (B,).  The pools are
+    written in place.  Returns (x, pages)."""
     for i, (mixer, ffn) in enumerate(cfg.prefix_pattern):
         x, _ = layer_apply_paged(x, params["prefix"][f"l{i}"], mixer, ffn,
                                  cfg, mode, pages["prefix"][i], tables, pos,

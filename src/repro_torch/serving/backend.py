@@ -43,6 +43,7 @@ import torch
 
 from repro_torch.obs import NULL
 from repro_torch.serving.kvcache import KV_BYTES_PER_TOKEN
+from repro_torch.serving.prng import gumbel_rows
 
 
 class Backend:
@@ -194,16 +195,59 @@ class Sampler:
         """Batched sampling on the logits' device.
 
         logits (B, V) f32; rids/poss (B,) int32.  Greedy argmax returns the
-        first maximum, as the host path and ``jnp.argmax`` do, so greedy
-        streams match the reference bit for bit given equal logits.
-        ``temperature > 0`` raises NotImplementedError: the reference keys
-        its Gumbel noise per (seed, rid, pos) with threefry ``fold_in``,
-        which the port does not reproduce yet."""
+        first maximum, as the host path and ``jnp.argmax`` do.  At
+        temperature > 0 the logits are divided by the temperature (filled
+        on the device: a host scalar would make CUDA multiply by its
+        reciprocal, and a host-made tensor would wait for the device), cut
+        to the top k (``z >= kth largest``, as ``jax.lax.top_k``), and
+        perturbed by a Gumbel row keyed per (seed, rid, pos) with the
+        reference's threefry ``fold_in`` chain (``prng.gumbel_rows``): a
+        request's stream depends on (seed, rid, pos) alone, never on batch
+        composition, and matches the JAX package's given equal logits (up
+        to Gumbel values that ``log`` rounds differently, which can flip a
+        near tie)."""
         if self.temperature <= 0.0:
             return torch.argmax(logits, dim=-1).to(torch.int32)
-        raise NotImplementedError(
-            "on-device sampling at temperature > 0 is not ported (it needs "
-            "a bit-exact threefry fold_in + Gumbel draw); use temperature=0")
+        z = logits.float() / torch.full((), self.temperature,
+                                        dtype=torch.float32,
+                                        device=logits.device)
+        V = z.shape[-1]
+        if 0 < self.top_k < V:
+            kth = torch.topk(z, self.top_k, dim=-1).values[..., -1:]
+            z = torch.where(z >= kth, z, float("-inf"))
+        g = gumbel_rows(self.seed, rids, poss, V)
+        return torch.argmax(z + g, dim=-1).to(torch.int32)
+
+    def verify_device(self, logits, inputs, rids, pos0, widths):
+        """On-device speculative accept/reject, as the reference's.
+
+        logits (B, W, V): the verify forward's logits at every window
+        position; inputs (B, W) int32: the window's input tokens (row 0 the
+        last accepted token, rows 1.. the drafts); pos0 (B,): row 0's
+        position; widths (B,): live rows per lane.  Returns (targets (B, W)
+        int32, emitted (B,) int32).
+
+        targets[b, s] is the token sampled at position pos0 + s by the same
+        (seed, rid, pos)-keyed ``sample_device`` that plain decoding uses,
+        so it is the token the sequential path emits there.  A draft is
+        accepted iff it equals its position's target; the emitted prefix
+        targets[b, :emitted[b]] is the leading run of accepted live drafts
+        plus one bonus token."""
+        B, W, V = logits.shape
+        steps = torch.arange(W, dtype=pos0.dtype, device=logits.device)
+        poss = pos0[:, None] + steps[None, :]
+        flat = self.sample_device(logits.reshape(B * W, V),
+                                  rids.repeat_interleave(W),
+                                  poss.reshape(-1))
+        targets = flat.reshape(B, W)
+        if W == 1:
+            return targets, torch.ones(B, dtype=torch.int32,
+                                       device=logits.device)
+        # draft s (input row s+1) is checked against target row s
+        m = (inputs[:, 1:] == targets[:, :-1]) & \
+            (steps[None, 1:] < widths[:, None])
+        accepted = torch.cumprod(m.to(torch.int32), dim=1).sum(dim=1)
+        return targets, (accepted + 1).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------

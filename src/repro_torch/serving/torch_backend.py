@@ -29,7 +29,17 @@ device; lanes whose remaining output runs out switch to the all-scrap
 table.  The host reads the results once per n tokens.  ``decode_batch``
 is ``decode_batch_n(n=1)``, so streams are equal across horizons.
 
-Sampling is greedy (temperature 0) in this port; see ``Sampler``.
+Speculative decoding: ``decode_verify_batch`` drafts up to the granted
+depth per lane (``NgramDrafter`` by default), scores each drafted lane's
+window in one ``Model.verify_paged`` forward (padded to ``ROWS`` lanes;
+its rows run in the decode call's shape, so each live row's logits are
+bitwise a decode step's), and accepts or rejects on the device.  Lanes
+without drafts ride a plain one-token decode call in the same step; the
+host reads both results once.
+
+Sampling is seeded per (seed, rid, pos) at any temperature (``Sampler``;
+greedy at temperature 0), so streams do not depend on batch composition,
+decode horizon or speculation.
 """
 
 from __future__ import annotations
@@ -46,6 +56,7 @@ from repro_torch.models.convert import (from_host, to_host, tree_leaves,
                                         tree_map)
 from repro_torch.models.model import build_model
 from repro_torch.serving.backend import Backend, Sampler
+from repro_torch.serving.drafter import NgramDrafter
 
 ROWS = 64   # lanes of a decode call, tokens of a prefill call
 
@@ -56,7 +67,7 @@ def _rows(n: int) -> int:
 
 class PagedTorchBackend(Backend):
     supports_multi_step = True
-    supports_spec_decode = False
+    supports_spec_decode = True
 
     def __init__(self, arch: str = "tinyllama-1.1b", num_blocks: int = 64,
                  page: int = 16, max_len: int = 128, seed: int = 0,
@@ -67,10 +78,11 @@ class PagedTorchBackend(Backend):
         """Keyword arguments as the reference's, plus ``device`` (None means
         "cuda", and raises RuntimeError without CUDA; the CPU runs the plain
         PyTorch versions of the kernels) and ``reduced`` (True: the reduced
-        CPU-test config; False: the full published width).  ``interpret``,
-        ``devices`` and ``drafter`` are accepted for the reference's
+        CPU-test config; False: the full published width).  ``drafter``
+        proposes speculative drafts (default ``NgramDrafter()``).
+        ``interpret`` and ``devices`` are accepted for the reference's
         signature and unused: the CUDA kernels have no interpret mode, and
-        neither tensor parallelism nor speculative decoding is ported."""
+        tensor parallelism is not ported."""
         if int(tp) > 1:
             raise NotImplementedError(
                 "tensor parallelism (tp > 1) is not ported")
@@ -90,9 +102,7 @@ class PagedTorchBackend(Backend):
                 "rope/none positions (recurrent mixers have no paged state)")
         self.sampler = Sampler(temperature=temperature, top_k=top_k,
                                seed=seed)
-        if temperature > 0.0:
-            raise NotImplementedError(
-                "temperature > 0 is not ported; use temperature=0")
+        self.drafter = drafter if drafter is not None else NgramDrafter()
         self.params = self.model.init(
             torch.Generator(device=self.device).manual_seed(seed))
         self.page = page
@@ -114,10 +124,11 @@ class PagedTorchBackend(Backend):
         # per-rid padded block tables (rebuilt only when the table changes)
         self._tab_cache: Dict[int, tuple] = {}
         self._staging: Dict[int, tuple] = {}
-        # dispatch accounting: calls, tokens, and decode forwards
+        # dispatch accounting: calls, tokens, decode and verify forwards
         self.n_decode_dispatches = 0
         self.n_decode_tokens = 0
         self.n_decode_forwards = 0
+        self.n_verify_forwards = 0
         self.n_prefill_dispatches = 0
         self._seed = seed
         self._t_acc = 0.0
@@ -221,6 +232,7 @@ class PagedTorchBackend(Backend):
         self.n_decode_dispatches = 0
         self.n_decode_tokens = 0
         self.n_decode_forwards = 0
+        self.n_verify_forwards = 0
         self.n_prefill_dispatches = 0
         self._t_acc = 0.0
         self._pages_step = 0
@@ -304,6 +316,18 @@ class PagedTorchBackend(Backend):
         if not reqs:
             return (np.zeros((0, n), np.int32), np.zeros((0, n), bool))
         self._flush_prefill()
+        t0 = time.perf_counter()
+        tok_n, act_n = self._decode_n(*self._stage_decode(reqs, tables, n),
+                                      n)
+        tok_n = tok_n.cpu().numpy()         # ONE host sync per n tokens
+        act_n = act_n.cpu().numpy()
+        self._t_acc += time.perf_counter() - t0
+        return self._take_decode(reqs, n, tok_n, act_n)
+
+    def _stage_decode(self, reqs: List, tables: List[List[int]], n: int):
+        """Inputs of a decode call of n micro-steps, padded to ``ROWS``
+        lanes, copied to the device: (tokens, positions, tables, remaining
+        budget, rids)."""
         nr = len(reqs)
         B = _rows(nr)
         self._shapes.add(("decode", B, n))
@@ -322,13 +346,12 @@ class PagedTorchBackend(Backend):
             tabs[i] = self._padded_table(r.rid, tables[i])
             rem[i] = max(0, min(n, r.true_output_len - r.decoded))
             rids[i] = r.rid & 0x7FFFFFFF
-        t0 = time.perf_counter()
-        tok_n, act_n = self._decode_n(self._dev(toks), self._dev(pos),
-                                      self._dev(tabs), self._dev(rem),
-                                      self._dev(rids), n)
-        tok_n = tok_n.cpu().numpy()         # ONE host sync per n tokens
-        act_n = act_n.cpu().numpy()
-        self._t_acc += time.perf_counter() - t0
+        return tuple(self._dev(a) for a in (toks, pos, tabs, rem, rids))
+
+    def _take_decode(self, reqs: List, n: int, tok_n: np.ndarray,
+                     act_n: np.ndarray):
+        """Append a decode call's host-side results to the streams."""
+        nr = len(reqs)
         self.n_decode_dispatches += 1
         self.n_decode_tokens += int(act_n[:nr].sum())
         for i, r in enumerate(reqs):
@@ -337,6 +360,113 @@ class PagedTorchBackend(Backend):
                 if act_n[i, s]:
                     gen.append(int(tok_n[i, s]))
         return tok_n[:nr], act_n[:nr]
+
+    # -- speculative decoding -------------------------------------------
+    def decode_verify_batch(self, reqs: List, tables: List[List[int]],
+                            depths: List[int]):
+        """Draft-then-verify step: propose up to depths[i] tokens per lane
+        from its prompt + generated history, score every drafted lane's
+        window in one verify forward, and keep the longest accepted prefix
+        plus the bonus token.  Every emitted token is the target model's
+        own (seed, rid, pos)-keyed sample, so streams equal spec-off ones;
+        rejected rows leave stale KV past the context, which the engine
+        rolls back (``BlockManager.truncate``) and later steps overwrite.
+        Lanes without drafts ride a plain one-token decode call.  Both
+        calls' inputs are copied to the device before either launches
+        (a copy from host memory waits for the device), and the host reads
+        their results once.  Returns per-lane (emitted, accepted,
+        proposed)."""
+        if not reqs:
+            return []
+        self._flush_prefill()
+        drafts = []
+        for r, d in zip(reqs, depths):
+            d = int(d)
+            if d <= 0:
+                drafts.append([])
+                continue
+            hist = list(self.prompt_ids(r)) + \
+                self.generated.setdefault(r.rid, [])
+            drafts.append(self.drafter.propose(hist, d)[:d])
+        # a window costs its full width in every row-wise op, so lanes the
+        # drafter came up dry on take the plain decode call instead;
+        # sampling is (seed, rid, pos)-keyed, so the split changes no token
+        dr_ix = [i for i, d in enumerate(drafts) if d]
+        pl_ix = [i for i, d in enumerate(drafts) if not d]
+        pl_reqs = [reqs[i] for i in pl_ix]
+        out: List = [None] * len(reqs)
+        t0 = time.perf_counter()
+        plain = verify = None
+        if pl_ix:
+            plain = self._stage_decode(pl_reqs, [tables[i] for i in pl_ix],
+                                       1)
+        if dr_ix:
+            verify = self._stage_verify([reqs[i] for i in dr_ix],
+                                        [tables[i] for i in dr_ix],
+                                        [drafts[i] for i in dr_ix])
+        if plain is not None:
+            plain = self._decode_n(*plain, 1)
+        if verify is not None:
+            verify = self._verify(*verify)
+        # ONE host sync per step: the first read waits for both calls
+        if plain is not None:
+            tok, act = (t.cpu().numpy() for t in plain)
+        if verify is not None:
+            targets, emitted = (t.cpu().numpy() for t in verify)
+        self._t_acc += time.perf_counter() - t0
+        if plain is not None:
+            _, act = self._take_decode(pl_reqs, 1, tok, act)
+            for j, i in enumerate(pl_ix):
+                out[i] = (int(act[j, 0]), 0, 0)
+        if verify is not None:
+            self.n_decode_dispatches += 1
+            for j, i in enumerate(dr_ix):
+                e = int(emitted[j])
+                self.generated[reqs[i].rid].extend(
+                    int(t) for t in targets[j, :e])
+                out[i] = (e, e - 1, len(drafts[i]))
+                self.n_decode_tokens += e
+        return out
+
+    def _stage_verify(self, reqs: List, tables: List[List[int]],
+                      drafts: List[List[int]]):
+        """Inputs of a verify call for drafted lanes, padded to ``ROWS``
+        lanes (padding lanes at width 0 on the all-scrap table), copied to
+        the device: (tokens (B, W), pos0, widths, tables, remaining budget,
+        rids).  The window width is exact: 1 + the longest draft."""
+        nr = len(reqs)
+        B = _rows(nr)
+        W = 1 + max(len(d) for d in drafts)
+        self._shapes.add(("verify", B, W))
+        self._pages_step += sum(len(t) for t in tables)
+        toks = np.zeros((B, W), np.int32)
+        pos0 = np.zeros(B, np.int32)
+        widths = np.zeros(B, np.int32)
+        tabs = np.full((B, self.n_max), self.scrap, np.int32)
+        rem = np.ones(B, np.int32)
+        rids = np.zeros(B, np.int32)
+        for j, (r, dr) in enumerate(zip(reqs, drafts)):
+            gen = self.generated[r.rid]
+            toks[j, 0] = gen[-1] if gen else self.prompt_ids(r)[-1]
+            toks[j, 1:1 + len(dr)] = dr
+            pos0[j] = r.prompt_len - 1 + r.decoded
+            widths[j] = 1 + len(dr)
+            tabs[j] = self._padded_table(r.rid, tables[j])
+            rem[j] = max(1, r.true_output_len - r.decoded)
+            rids[j] = r.rid & 0x7FFFFFFF
+        return tuple(self._dev(a) for a in (toks, pos0, widths, tabs, rem,
+                                             rids))
+
+    def _verify(self, toks, pos0, widths, tabs, rem, rids):
+        """One verify forward plus the on-device accept, no host sync.
+        Returns (targets (B, W), emitted (B,)), emitted clamped to the
+        lane's remaining output."""
+        logits, self.pages = self.model.verify_paged(
+            self.params, self.pages, toks, pos0, widths, tabs)
+        self.n_verify_forwards += 1
+        targets, emitted = self.sampler.verify_device(logits, toks, rids,
+                                                      pos0, widths)
+        return targets, torch.minimum(emitted, rem)
 
     # -- KV residency hooks (mirror BlockManager transitions 1:1) -------
     # Payloads are numpy trees in the reference's pool layout: unit leaves

@@ -84,7 +84,7 @@ def test_engine_decode_steps_swap_across_window():
 
 def test_texts_independent_of_batch_composition():
     """Different schedulers batch requests differently; streams must not
-    change (greedy: the port samples at temperature 0 only)."""
+    change (greedy)."""
     texts = {}
     for name in ("vllm", "tempo"):
         be = _backend(num_blocks=16, max_len=64)
@@ -109,8 +109,6 @@ def test_backend_rejects_oversized_request():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="temperature"):
-        _backend(temperature=0.8)
     with pytest.raises(NotImplementedError, match="tensor parallel"):
         _backend(tp=2)
     with pytest.raises(ValueError, match="jax"):

@@ -25,7 +25,7 @@ VERBATIM = [
     "core/service.py", "core/slo_tracker.py", "core/scheduler.py",
     "core/gmg.py", "core/baselines.py",
     "serving/request.py", "serving/kvcache.py", "serving/workload.py",
-    "serving/metrics.py", "serving/engine.py",
+    "serving/metrics.py", "serving/engine.py", "serving/drafter.py",
     "configs/base.py", "configs/tinyllama_1p1b.py",
 ]
 _IMPORT = re.compile(r"^(\s*)(from|import) repro(?=[.\s])", re.M)
@@ -48,7 +48,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     """Import every port module in a fresh interpreter whose meta-path
     finder refuses ``jax`` and ``repro``."""
     mods = _port_modules()
-    assert "repro_torch.serving.torch_backend" in mods
+    assert {"repro_torch.serving.torch_backend",
+            "repro_torch.serving.prng"} <= set(mods)
     code = textwrap.dedent(f"""
         import importlib, importlib.abc, sys
         class Refuse(importlib.abc.MetaPathFinder):
