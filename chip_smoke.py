@@ -11,9 +11,10 @@ serves full-width tinyllama-1.1b (random bf16 weights from a seed) through
 one and four decode steps per call, equal token streams required),
 probes whether results depend on batch grouping or prefill chunking,
 holds full-width verify logits bitwise against decode logits, profiles one
-decode forward and the temperature > 0 sampler, serves speculative
-decoding (vllm and gmg, temperature 0 and 0.8) with token streams equal
-to plain decoding, and times the kernels with CUDA events.
+decode forward, a verify forward and the temperature > 0 sampler, serves
+speculative decoding (vllm and gmg, temperature 0 and 0.8; n-gram drafts
+and drafts replayed from the plain run, which are accepted) with token
+streams equal to plain decoding, and times the kernels with CUDA events.
 Prints the card, the checks, one JSON line of kernel records and,
 last, one JSON line naming the device.  Exits non-zero, with no result
 lines, on any failed check, when CUDA is unavailable, or outside a checkout.
@@ -34,6 +35,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM memory rate
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
+BF16_FLOPS = 989e12            # H100 SXM dense bf16 on the tensor cores
 SOURCE = "src/repro_torch/csrc/paged_attention.cu"
 REPLACES = {"fused_decode_attention": "src/repro/kernels/paged_attention.py:147",
             "paged_attention": "src/repro/kernels/paged_attention.py:462",
@@ -44,6 +46,49 @@ WORKLOAD = dict(rate=1.5, duration=6.0, seed=0, mix=(2, 1, 1), prompt_cap=40,
 # prompt of every third request in the speculative runs: random prompts
 # give the n-gram drafter nothing to match
 MOTIF = [11, 42, 7, 99]
+
+
+def motif_prompts(req):
+    """``ExperimentSpec.prompts`` of the speculative runs: every third rid's
+    prompt repeats ``MOTIF``, the rest are the backend's random ones."""
+    if req.rid % 3:
+        return None
+    return (MOTIF * req.prompt_len)[:req.prompt_len]
+
+
+class ReplayDrafter:
+    """Drafts a finished run's streams back: for a history that is a prefix
+    of a recorded prompt + output, it proposes what followed.  Replaying
+    the plain run that a speculative run must equal makes the drafts the
+    target's own tokens, so they are accepted: the multi-token emit, the
+    remaining-output clamp and later steps reading accepted rows' KV run."""
+
+    def __init__(self, streams):
+        self.streams = streams
+
+    def propose(self, tokens, k):
+        hist = [int(t) for t in tokens]
+        n = len(hist)
+        for s in self.streams:
+            if len(s) > n and s[:n] == hist:
+                return s[n:n + k]
+        return []
+
+
+def replay_of(be, prompts):
+    """A ``ReplayDrafter`` of the run ``be`` just served: prompt + output
+    of every single request of the workload (DAG stages get no drafts)."""
+    from repro_torch.serving.workload import WorkloadGen, WorkloadSpec
+
+    singles, _ = WorkloadGen(WorkloadSpec(**WORKLOAD)).generate()
+    streams = []
+    for r in singles:
+        toks = prompts(r) if prompts else None
+        if toks is not None:
+            r.meta["prompt_tokens"] = list(toks)
+        streams.append([int(t) for t in be.prompt_ids(r)]
+                       + list(be.generated.get(r.rid, [])))
+    return ReplayDrafter(streams)
 
 
 def check(cond: bool, what: str) -> None:
@@ -277,27 +322,24 @@ def median_ms(torch, fn, flush, reps=30):
 
 
 def serve(torch, pa, fused=True, decode_steps=1, scheduler="gmg", spec=0,
-          temperature=0.0, motifs=False):
+          temperature=0.0, prompts=None, drafter=None):
     """Full-width tinyllama-1.1b through run(); kernel launch counts are
     zeroed just before the run and read just after it.  ``spec`` is the
-    engine's draft-depth ceiling; temperature > 0 samples with top_k 50.
-    With ``motifs`` every third request's prompt repeats ``MOTIF``: run()
-    takes no prompt tokens, so that run builds the same workload and
-    drives ServeEngine itself."""
-    from repro_torch.core.baselines import make_scheduler
-    from repro_torch.core.service import ServiceModel
+    engine's draft-depth ceiling; temperature > 0 samples with top_k 50;
+    ``prompts`` is ``ExperimentSpec.prompts``; ``drafter`` replaces the
+    n-gram drafter."""
     from repro_torch.obs import MetricsRegistry
-    from repro_torch.serving.engine import EngineConfig, ServeEngine
-    from repro_torch.serving.metrics import summarize
+    from repro_torch.serving.engine import EngineConfig
     from repro_torch.serving.run import (BackendSpec, ExperimentSpec,
                                          TelemetrySpec, run)
     from repro_torch.serving.torch_backend import PagedTorchBackend
-    from repro_torch.serving.workload import WorkloadGen, WorkloadSpec
+    from repro_torch.serving.workload import WorkloadSpec
 
     be = PagedTorchBackend(arch="tinyllama-1.1b", reduced=False,
                            num_blocks=512, page=16, max_len=256, seed=0,
                            fused=fused, temperature=temperature,
-                           top_k=50 if temperature > 0 else 0)
+                           top_k=50 if temperature > 0 else 0,
+                           drafter=drafter)
     check(be.cfg.d_model == 2048 and be.cfg.num_layers == 22
           and be.cfg.dtype == "bfloat16", "full-width tinyllama config")
     obs = MetricsRegistry()
@@ -306,31 +348,19 @@ def serve(torch, pa, fused=True, decode_steps=1, scheduler="gmg", spec=0,
     for k in pa.launches:
         pa.launches[k] = 0
     t0 = time.perf_counter()
-    if motifs:
-        gen = WorkloadGen(WorkloadSpec(**WORKLOAD))
-        singles, dags = gen.generate()
-        for r in singles[::3]:
-            r.meta["prompt_tokens"] = (MOTIF * r.prompt_len)[:r.prompt_len]
-        eng = ServeEngine(be, make_scheduler(scheduler), engine,
-                          workload=gen, obs=obs)
-        eng.load(singles, dags)
-        summ = summarize(scheduler, eng.run(), ServiceModel(), eng.now,
-                         n_admitted=eng.submitted_count, shed=eng.shed,
-                         spec_proposed=eng.spec_proposed,
-                         spec_accepted=eng.spec_accepted)
-    else:
-        summ = run(ExperimentSpec(
-            scheduler=scheduler, workload=WorkloadSpec(**WORKLOAD),
-            engine=engine, backend=BackendSpec(kind=be),
-            telemetry=TelemetrySpec(obs=obs)))
+    summ = run(ExperimentSpec(
+        scheduler=scheduler, workload=WorkloadSpec(**WORKLOAD),
+        engine=engine, backend=BackendSpec(kind=be),
+        telemetry=TelemetrySpec(obs=obs), prompts=prompts))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(pa.launches)
     digest = stream_digest(be)
     tokens = [t for toks in be.generated.values() for t in toks]
+    how = ((" (motif prompts)" if prompts else "")
+           + (f" ({type(drafter).__name__})" if drafter else ""))
     print(f"  {scheduler} fused={fused} decode_steps={decode_steps} "
-          f"spec={spec} temperature={temperature}"
-          f"{' (motif prompts)' if motifs else ''}: finished "
+          f"spec={spec} temperature={temperature}{how}: finished "
           f"{summ.n_finished}, goodput {summ.goodput_frac:.3f}, "
           f"{summ.throughput_tok_s:.1f} tok/s (engine clock), "
           f"{len(tokens)} tokens in {wall:.2f} s wall, launches {counts}, "
@@ -455,7 +485,11 @@ def verify_vs_decode(torch, be, rows) -> None:
     with window widths 1-5, the rest padding at width 0.  Each live lane's
     prompt is prefilled twice, on two sets of pages; one copy is verified
     in one forward, the other decoded row by row (rows past a lane's width
-    on the all-scrap table, as the plain verify version does)."""
+    on the all-scrap table, as the plain verify version does).  Both row
+    layouts: the live rows packed into ``rows``-row slabs (the backend's)
+    and W slabs of every lane's row s."""
+    from repro_torch.models.model import verify_slabs
+
     g = torch.Generator(device="cuda").manual_seed(4)
     ctxs = [5, 16, 17, 33, 40, 48, 49, 52]
     widths = [5, 1, 4, 5, 2, 5, 3, 5]
@@ -468,42 +502,48 @@ def verify_vs_decode(torch, be, rows) -> None:
 
     scrap = torch.full((rows, be.n_max), be.scrap, dtype=torch.int32,
                        device=dev)
-    tabs = [scrap.clone(), scrap.clone()]
+    tabs = {k: scrap.clone() for k in ("packed", "per-row", "decode")}
     for i, c in enumerate(ctxs):
         prompt = torch.zeros((1, rows), dtype=torch.int32, device=dev)
         prompt[0, :c - 1] = ints(c - 1)
-        for k in (0, 1):
-            first = (200 + (2 * i + k) * per)
-            tabs[k][i, :per] = torch.arange(first, first + per,
-                                            dtype=torch.int32, device=dev)
+        for k, tab in enumerate(tabs.values()):
+            first = (200 + (3 * i + k) * per)
+            tab[i, :per] = torch.arange(first, first + per,
+                                        dtype=torch.int32, device=dev)
             be.pages = be.model.prefill_paged(be.params, be.pages, prompt, 0,
-                                              tabs[k][i], c - 1)
+                                              tab[i], c - 1)
     toks = torch.zeros((rows, W), dtype=torch.int32, device=dev)
     toks[:len(ctxs)] = ints(len(ctxs), W)
     pos0 = torch.zeros(rows, dtype=torch.int32, device=dev)
     pos0[:len(ctxs)] = torch.tensor(ctxs, dtype=torch.int32, device=dev) - 1
     wid = torch.zeros(rows, dtype=torch.int32, device=dev)
     wid[:len(ctxs)] = torch.tensor(widths, dtype=torch.int32, device=dev)
-    lv, be.pages = be.model.verify_paged(be.params, be.pages, toks, pos0, wid,
-                                         tabs[0])
-    same = total = 0
-    worst = 0.0
+    slabs = torch.from_numpy(verify_slabs(wid.cpu().numpy(), W, rows)).to(dev)
+    lv = {}
+    for name, layout in (("packed", slabs), ("per-row", None)):
+        lv[name], be.pages = be.model.verify_paged(
+            be.params, be.pages, toks, pos0, wid, tabs[name], layout)
+        check(tuple(lv[name].shape) == (rows, W, be.cfg.vocab_size)
+              and bool(torch.isfinite(lv[name]).all()), "verify logits")
+    same = dict.fromkeys(lv, 0)
+    total, worst = 0, 0.0
     for s in range(W):
-        tab_s = torch.where(wid[:, None] > s, tabs[1], scrap)
+        tab_s = torch.where(wid[:, None] > s, tabs["decode"], scrap)
         ld, be.pages = be.model.decode_paged(
             be.params, be.pages, toks[:, s:s + 1].contiguous(), pos0 + s,
             tab_s, fused=True)
         for b in range(len(ctxs)):
             if s < widths[b]:
                 total += 1
-                same += bool(torch.equal(lv[b, s], ld[b]))
-                worst = max(worst, (lv[b, s] - ld[b]).abs().max().item())
-    check(tuple(lv.shape) == (rows, W, be.cfg.vocab_size)
-          and bool(torch.isfinite(lv).all()), "verify logits")
+                for name, lg in lv.items():
+                    same[name] += bool(torch.equal(lg[b, s], ld[b]))
+                    worst = max(worst, (lg[b, s] - ld[b]).abs().max().item())
     print(f"  verify vs decode logits at full width, {rows} lanes (8 live, "
-          f"W={W}): {same}/{total} live rows bitwise equal, max|diff| "
-          f"{worst:.3e}")
-    check(same == total, "verify logits differ from decode logits")
+          f"W={W}): live rows bitwise equal {same['packed']}/{total} "
+          f"packed into {slabs.shape[0]} slab(s), {same['per-row']}/{total} "
+          f"in {W} per-row slabs; max|diff| {worst:.3e}")
+    check(all(n == total for n in same.values()),
+          "verify logits differ from decode logits")
 
 
 def profiled(torch, fn, reps=10):
@@ -562,7 +602,11 @@ def sampler_breakdown(torch) -> None:
 def decode_breakdown(torch, be) -> None:
     """Where one full-width forward's time goes at the serving path's call
     shape, 64 lanes with 8 live at context 48: a decode forward, and a
-    verify forward with a window of 5 rows on each live lane."""
+    verify forward with a window of 5 rows on each live lane, its 40 live
+    rows packed into one 64-row slab (the backend's layout) and, for
+    comparison, as 5 slabs of every lane's row s."""
+    from repro_torch.models.model import verify_slabs
+
     B, live, ctx, W = 64, 8, 48, 5
     tok = torch.zeros((B, W), dtype=torch.int32, device="cuda")
     pos = torch.zeros(B, dtype=torch.int32, device="cuda")
@@ -575,11 +619,15 @@ def decode_breakdown(torch, be) -> None:
     tabs[:live, :per] = torch.arange(live * per, dtype=torch.int32,
                                      device="cuda").reshape(live, -1)
     tok1 = tok[:, :1].contiguous()
+    slabs = torch.from_numpy(verify_slabs(wid.cpu().numpy(), W, B)).cuda()
     calls = {
         "decode forward": lambda: be.model.decode_paged(
             be.params, be.pages, tok1, pos, tabs, fused=True),
-        f"verify forward (W={W})": lambda: be.model.verify_paged(
-            be.params, be.pages, tok, pos, wid, tabs)}
+        f"verify forward (W={W}, packed)": lambda: be.model.verify_paged(
+            be.params, be.pages, tok, pos, wid, tabs, slabs),
+        f"verify forward (W={W}, per-row slabs)":
+            lambda: be.model.verify_paged(be.params, be.pages, tok, pos, wid,
+                                          tabs)}
     for name, fn in calls.items():
         wall_ms, busy_ms, n, top = profiled(torch, fn)
         print(f"  {name}, {B} lanes ({live} live at ctx {ctx}): wall "
@@ -686,17 +734,20 @@ def main() -> int:
     check(dig_u1 == dig_f1, "fused=False changed the token streams")
 
     # 4b. speculative decoding: vllm grants every lane the depth ceiling;
-    # streams must equal plain decoding's at temperature 0 and 0.8
+    # streams must equal plain decoding's at temperature 0 and 0.8, with
+    # n-gram drafts and with drafts replayed from the plain run
     print("speculative decoding, full width:")
-    digests, spec = {}, None
+    digests, spec, replayed = {}, None, {}
     for temperature in (0.0, 0.8):
         for depth, n in ((0, 1), (4, 1), (0, 4), (4, 4)):
             if temperature == 0.0 and (depth, n) == (0, 4):
                 continue          # the gmg runs above cover n=4 without spec
             be, summ, counts, dig = serve(
                 torch, pa, decode_steps=n, scheduler="vllm", spec=depth,
-                temperature=temperature, motifs=True)
+                temperature=temperature, prompts=motif_prompts)
             digests[temperature, depth, n] = dig
+            if (depth, n) == (0, 1):
+                replay = replay_of(be, motif_prompts)
             if (temperature, depth, n) == (0.0, 4, 1):
                 spec = (counts, be.n_verify_forwards, summ)
             if depth:
@@ -706,18 +757,34 @@ def main() -> int:
                       "speculative path")
             del be
             torch.cuda.empty_cache()
+        be, summ, counts, dig = serve(
+            torch, pa, scheduler="vllm", spec=4, temperature=temperature,
+            prompts=motif_prompts, drafter=replay)
+        digests[temperature, "replayed", 1] = dig
+        replayed[temperature] = summ
+        check(summ.spec_accepted > 0, "no replayed draft was accepted")
+        check(counts["fused_verify_attention"] > 0,
+              "fused_verify_attention never launched on the replayed run")
+        del be
+        torch.cuda.empty_cache()
     be, summ_g, _, dig_g4 = serve(torch, pa, scheduler="gmg", spec=4)
     del be
     torch.cuda.empty_cache()
     counts_v, fwd_v, summ_v = spec
     print(f"  digests: vllm t=0 {digests[0.0, 0, 1]} (spec 0), "
           f"{digests[0.0, 4, 1]} (spec 4), {digests[0.0, 4, 4]} (spec 4, "
-          f"n=4); gmg spec 4 {dig_g4} (spec 0 {dig_f1}); vllm t=0.8 "
+          f"n=4), {digests[0.0, 'replayed', 1]} (spec 4, replayed drafts); "
+          f"gmg spec 4 {dig_g4} (spec 0 {dig_f1}); vllm t=0.8 "
           f"{digests[0.8, 0, 1]} (spec 0), {digests[0.8, 4, 1]} (spec 4), "
           f"{digests[0.8, 0, 4]} (spec 0, n=4), {digests[0.8, 4, 4]} (spec 4, "
-          f"n=4); spec accepted {summ_v.spec_accepted} of "
+          f"n=4), {digests[0.8, 'replayed', 1]} (spec 4, replayed drafts); "
+          f"n-gram drafts accepted {summ_v.spec_accepted} of "
           f"{summ_v.spec_proposed} proposed (vllm t=0 spec 4), gmg "
-          f"{summ_g.spec_accepted} of {summ_g.spec_proposed}")
+          f"{summ_g.spec_accepted} of {summ_g.spec_proposed}; replayed "
+          f"drafts accepted {replayed[0.0].spec_accepted} of "
+          f"{replayed[0.0].spec_proposed} at t=0, "
+          f"{replayed[0.8].spec_accepted} of {replayed[0.8].spec_proposed} "
+          f"at t=0.8")
     for (temperature, depth, n), dig in digests.items():
         check(dig == digests[temperature, 0, 1],
               f"spec {depth}, decode_steps {n} changed the token streams at "
@@ -731,7 +798,10 @@ def main() -> int:
     e = 2                                    # bytes per bf16 element
     kv_bytes = 2 * B * ctx * KV * D * e
     io_bytes = 2 * B * H * D * e + B * (ctx // page) * 4 + B * 4
-    ops = 4 * B * ctx * H * D                # q.k and p.v, f32 FMAs
+    # q.k and p.v each 2 * B * ctx * H * D operations: the bf16 q.k
+    # products are exact in f32 (the tensor cores' rate), p.v multiplies
+    # f32 probabilities (the f32 rate)
+    ops = 2 * B * ctx * H * D
     # library yardstick: one SDPA call over K/V gathered beforehand
     tab = c["tables"].long()
     kg = c["k_pages"][tab].reshape(B, ctx, KV, D).transpose(1, 2)
@@ -783,7 +853,7 @@ def main() -> int:
         counts_v["fused_verify_attention"], fwd_v)
     ops_of = {"paged_attention": ops, "fused_decode_attention": ops,
               # row s attends ctx - W + 1 + s tokens
-              "fused_verify_attention": sum(4 * B * (ctx - W + 1 + s) * H * D
+              "fused_verify_attention": sum(2 * B * (ctx - W + 1 + s) * H * D
                                             for s in range(W))}
     lib_of = {"paged_attention": lib_ms, "fused_decode_attention": lib_ms,
               "fused_verify_attention": lib_v_ms}
@@ -795,11 +865,13 @@ def main() -> int:
         ms = median_ms(torch, kern, flush)
         plain_ms = median_ms(torch, plain, flush)
         t_bytes = bytes_of[name] / HBM_BYTES_PER_S * 1e3
-        t_ops = ops_of[name] / F32_FLOPS * 1e3
+        t_ops = ops_of[name] * (1 / BF16_FLOPS + 1 / F32_FLOPS) * 1e3
         bound_ms = max(t_bytes, t_ops)
         per_step = launches / forwards
         print(f"  {name}: kernel {ms:.4f} ms, bound {bound_ms:.5f} ms "
-              f"({bytes_of[name]} B / 3.35 TB/s), plain {plain_ms:.4f} ms, "
+              f"(bytes {bytes_of[name]} B / 3.35 TB/s = {t_bytes:.5f} ms; "
+              f"operations 2 x {ops_of[name]} at 989 bf16 + 67 f32 TFLOP/s "
+              f"= {t_ops:.5f} ms), plain {plain_ms:.4f} ms, "
               f"SDPA {lib_of[name]:.4f} ms, {launches} launches = "
               f"{per_step:g} per {'verify' if 'verify' in name else 'decode'}"
               f" forward")

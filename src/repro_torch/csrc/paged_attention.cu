@@ -36,13 +36,14 @@
 // pos0+s, synchronises, then runs `attend` once per live row on query row
 // (b, s) with ctx = pos0+s+1.  Each live row is thus bitwise the fused
 // decode step at that position, which is what keeps speculative token
-// streams equal to plain decoding.  Rows at or past the width write nothing
-// and their output rows are zero.  What bounds it: W rows of f32
-// arithmetic over the same pages, so at W=5, ctx 512 its operations (2.5 us
-// at 67 TFLOP/s) outweigh its bytes (1.4 us at 3.35 TB/s).  This first
-// design re-reads the lane's pages once per row (W passes over them); one
-// page pass for all W rows that keeps each row's reduction order is later
-// work.
+// streams equal to plain decoding.  Rows at or past the width write nothing,
+// not even their output rows, which are unspecified.  What bounds it: its
+// bytes, at W=5, ctx 512 1.37 us at 3.35 TB/s, against 1.33 us of
+// operations (the f32 p.v products at 67 TFLOP/s; the bf16 q.k products
+// are exact in f32 and count at the tensor cores' 989 TFLOP/s).  This
+// first design re-reads the lane's pages once per row (W passes over
+// them); one page pass for all W rows that keeps each row's reduction
+// order is later work.
 //
 // Each C entry point returns cudaGetLastError() as an int (0 = success).
 
@@ -261,8 +262,12 @@ __global__ void __launch_bounds__(kThreads)
   attend<T>(q, kpool, vpool, table, pos + 1, out, b, h, geo, smem);
 }
 
+// The register cap (6 blocks of kThreads per SM: at most 40 registers, as
+// the decode kernels take) is for speed alone: left free, the compiler
+// gives the W-row loop 48 registers and the kernel runs about 15% slower on
+// the H100 (PERF.md, PR 12).
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 6)
     fused_verify_kernel(const T* q, const T* k_new, const T* v_new, T* kpool,
                         T* vpool, const int* tables, const int* pos0,
                         const int* widths, T* out, int W, Geometry geo) {
@@ -275,17 +280,10 @@ __global__ void __launch_bounds__(kThreads)
     put_row<T>(k_new, v_new, (((size_t)b * W + s) * geo.KV + h) * geo.D,
                kpool, vpool, table, p0 + s, h, geo);
   __syncthreads();
-  const int G = geo.H / geo.KV;
-  for (int s = 0; s < W; ++s) {
-    if (s < width) {
-      if (s > 0) __syncthreads();  // the previous row's reads of smem
-      attend<T>(q, kpool, vpool, table, p0 + s + 1, out, b * W + s, h, geo,
-                smem);
-    } else {
-      T* ob = out + (((size_t)b * W + s) * geo.H + (size_t)h * G) * geo.D;
-      for (int e = threadIdx.x; e < G * geo.D; e += blockDim.x)
-        ob[e] = from_f32<T>(0.f);
-    }
+  for (int s = 0; s < width; ++s) {
+    if (s > 0) __syncthreads();  // the previous row's reads of smem
+    attend<T>(q, kpool, vpool, table, p0 + s + 1, out, b * W + s, h, geo,
+              smem);
   }
 }
 

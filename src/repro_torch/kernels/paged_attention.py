@@ -305,9 +305,8 @@ def fused_verify_attention(q, k_new, v_new, k_pages, v_pages, block_tables,
     widths: (B,) int32, live rows per lane (0 for padding lanes).  Each live
     row's output is bitwise the ``fused_decode_attention`` kernel's at that
     position.  Rows at or past the width write nothing; their output rows
-    are zero from the kernel and garbage from the plain version, and the
-    caller discards them.  The pools are updated in place.  Returns
-    (out (B, W, H, D), k_pages, v_pages)."""
+    are unspecified, and the caller discards them.  The pools are updated
+    in place.  Returns (out (B, W, H, D), k_pages, v_pages)."""
     _check(q, k_pages, v_pages, block_tables, pos0, rows=(k_new, v_new),
            widths=widths)
     if q.device.type == "cpu":

@@ -5,6 +5,8 @@ kernels.  Page pools are updated in place."""
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.kernels.paged_attention import (NEG_INF,
@@ -14,6 +16,21 @@ from repro_torch.kernels.paged_attention import (NEG_INF,
                                                  paged_kv_append,
                                                  paged_kv_append_batch)
 from repro_torch.models.layers import apply_rope, rope_tables
+
+
+class VerifyWindow(NamedTuple):
+    """A verify forward's layout (see ``Model.verify_paged``): pos0 and
+    widths (B,) int32 and the window width W, as the attention kernel takes
+    them; ``rows`` (n_slabs, S) int64, the flat window index b*W + s of
+    each slab row (B*W pads); ``take``, the same with padding clamped into
+    range for gathers; ``pos`` (n_slabs, S) int32, each slab row's rope
+    position."""
+    pos0: torch.Tensor
+    widths: torch.Tensor
+    W: int
+    rows: torch.Tensor
+    take: torch.Tensor
+    pos: torch.Tensor
 
 
 def _qkv(x, p):
@@ -86,32 +103,41 @@ def gqa_decode_paged(x, p, cfg, pages, block_tables, positions, *,
     return out, {"k": kp, "v": vp}
 
 
-def gqa_verify_paged(xs, p, cfg, pages, block_tables, pos0, widths):
+def gqa_verify_paged(xs, p, cfg, pages, block_tables, win: VerifyWindow):
     """Speculative verification attention: W window rows per lane, one
     ``fused_verify_attention`` launch.
 
-    xs: W slabs (B, 1, D), slab s holding window row s of every lane (row
-    0 the last accepted token, rows 1.. the drafts; rows at or past
-    ``widths[b]`` are padding).  pos0: (B,) int32, row 0's KV slot; rope
-    positions are pos0 + s.  Projections and rope run per slab, each in the
-    shape of a B-lane ``gqa_decode_paged`` call, so every row's q/k/v and
-    output projection are bitwise the decode step's at that position.
-    Returns (W slabs (B, 1, D), pages)."""
+    xs: slabs (S, 1, D) of window rows as ``win.rows`` lays them out (row 0
+    of a lane the last accepted token, rows 1.. the drafts).  Projections
+    and rope run per slab, each in the shape of an S-lane
+    ``gqa_decode_paged`` call, so every row's q/k/v and output projection
+    are bitwise the decode step's at that position; q/k/v are scattered
+    into the (B, W) window (rows not computed stay 0 and, past a lane's
+    width, are never read) and the outputs gathered back.  Returns (slabs
+    (S, 1, D), pages)."""
     Dh = p["wq"].shape[2]
-    qs, ks, vs = [], [], []
-    for s, x in enumerate(xs):
+    B, W = win.pos0.shape[0], win.W
+    parts = []
+    for x, pos in zip(xs, win.pos):
         q, k, v = _qkv(x, p)
         if cfg.positional == "rope":
-            cos, sin = rope_tables((pos0 + s)[:, None], Dh, cfg.rope_theta)
+            cos, sin = rope_tables(pos[:, None], Dh, cfg.rope_theta)
             q = apply_rope(q, cos, sin)
             k = apply_rope(k, cos, sin)
-        qs.append(q[:, 0])
-        ks.append(k[:, 0])
-        vs.append(v[:, 0])
-    o, kp, vp = fused_verify_attention(
-        torch.stack(qs, dim=1), torch.stack(ks, dim=1),
-        torch.stack(vs, dim=1), pages["k"], pages["v"], block_tables, pos0,
-        widths, scale=Dh ** -0.5)
-    outs = [torch.einsum("bhk,hkd->bd", o[:, s].contiguous().to(x.dtype),
-                         p["wo"])[:, None, :] for s, x in enumerate(xs)]
+        parts.append((q[:, 0], k[:, 0], v[:, 0]))
+    rows = win.rows.reshape(-1)
+
+    def window(slabs):
+        t = torch.cat(slabs)
+        out = t.new_zeros((B * W + 1,) + t.shape[1:])
+        out[rows] = t
+        return out[:B * W].view((B, W) + t.shape[1:])
+
+    q, k, v = (window(slabs) for slabs in zip(*parts))
+    o, kp, vp = fused_verify_attention(q, k, v, pages["k"], pages["v"],
+                                       block_tables, win.pos0, win.widths,
+                                       scale=Dh ** -0.5)
+    o = o.view((B * W,) + o.shape[2:])
+    outs = [torch.einsum("bhk,hkd->bd", o[r].to(x.dtype), p["wo"])[:, None]
+            for r, x in zip(win.take, xs)]
     return outs, {"k": kp, "v": vp}

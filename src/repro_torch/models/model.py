@@ -15,9 +15,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.attention import VerifyWindow
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.transformer import stack_apply_paged
 
@@ -152,7 +154,7 @@ class Model:
         return logits[:, :self.cfg.vocab_size], pages
 
     def verify_paged(self, params, pages, tokens, pos0, widths,
-                     block_tables):
+                     block_tables, rows=None):
         """Speculative verification forward: score all W window positions
         of every lane in one pass.  tokens (B, W) int32, row 0 the last
         accepted token and rows 1.. the drafts (rows at or past
@@ -160,20 +162,50 @@ class Model:
         widths (B,) int32; block_tables (B, n_max) int32.  Returns
         (logits (B, W, V) f32, pages), the pools written in place.
 
-        Every row-wise op runs on slabs of the B lanes' row s, the shape of
-        a B-lane ``decode_paged`` call, and attention goes through one
-        ``fused_verify_attention`` launch per layer; a live row's logits
-        are then bitwise the ``decode_paged`` logits of the same token at
-        the same position with the same B."""
-        tok = tokens.long()
-        x = [params["embed"][tok[:, s:s + 1]] for s in range(tok.shape[1])]
+        ``rows`` (n_slabs, S) int64 names the window rows to compute by
+        their flat index b*W + s, one slab per row-wise call; entries equal
+        to B*W pad a slab.  Default: W slabs of B rows, slab s holding row
+        s of every lane; ``verify_slabs`` packs the live rows alone.  Every
+        row-wise op (embedding, norms, projections, rope, MLP, f32 lm_head)
+        runs once per slab and attention goes through one
+        ``fused_verify_attention`` launch per layer on the (B, W) window,
+        so a computed live row's logits are bitwise the ``decode_paged``
+        logits of the same token at the same position in an S-lane call.
+        Rows not computed have logits 0."""
+        B, W = tokens.shape
+        dev = tokens.device
+        if rows is None:
+            rows = torch.arange(B * W, device=dev).view(B, W).T
+        steps = torch.arange(W, dtype=pos0.dtype, device=dev)
+        tok = torch.cat([tokens.reshape(-1), tokens.new_zeros(1)]).long()
+        pos = torch.cat([(pos0[:, None] + steps).reshape(-1),
+                         pos0.new_zeros(1)])
+        win = VerifyWindow(pos0, widths, W, rows, rows.clamp(max=B * W - 1),
+                           pos[rows])
+        x = [params["embed"][t[:, None]] for t in tok[rows]]
         x, pages = stack_apply_paged(x, params, self.cfg, "verify", pages,
-                                     block_tables, pos0, widths)
+                                     block_tables, win)
         head = self._head_f32(params["lm_head"])
-        logits = torch.stack(
+        logits = head.new_zeros((B * W + 1, head.shape[1]))
+        logits[rows.reshape(-1)] = torch.cat(
             [rms_norm(xs, params["final_norm"], self.cfg.norm_eps)[:, 0]
-             .float() @ head for xs in x], dim=1)
-        return logits[..., :self.cfg.vocab_size], pages
+             .float() @ head for xs in x])
+        return (logits[:B * W].view(B, W, -1)[..., :self.cfg.vocab_size],
+                pages)
+
+
+def verify_slabs(widths, W: int, slab: int) -> np.ndarray:
+    """``rows`` for ``Model.verify_paged`` that compute the live window
+    rows alone: the flat indices b*W + s of rows s < widths[b], in order,
+    packed into ceil(live / slab) slabs of ``slab`` rows (at least one),
+    the last padded with B*W.  ``widths``: host-side (B,) ints.  Returns
+    (n_slabs, slab) int64."""
+    widths = np.asarray(widths)
+    live = np.flatnonzero(np.arange(W)[None, :] < widths[:, None])
+    n = max(1, -(-live.size // slab))
+    out = np.full(n * slab, widths.shape[0] * W, np.int64)
+    out[:live.size] = live
+    return out.reshape(n, slab)
 
 
 def build_model(cfg: ModelConfig) -> Model:

@@ -4,11 +4,11 @@ parameters and page pools carry a leading ``num_units`` dim, as in the
 reference; a Python loop over units takes the place of ``lax.scan``.
 
 Mode "verify" (speculative decoding) carries the hidden states as a list
-of W slabs (B, 1, d), slab s holding window row s of every lane, and runs
-every row-wise op (norms, projections, rope, MLP) once per slab.  GEMM and
-reduction libraries choose their summation order by shape, so a verify
-row then computes bitwise what a B-lane decode step computes for the same
-token at the same position; only attention sees the whole window."""
+of slabs (S, 1, d) of window rows and runs every row-wise op (norms,
+projections, rope, MLP) once per slab.  GEMM and reduction libraries
+choose their summation order by shape, so a verify row then computes
+bitwise what an S-lane decode step computes for the same token at the same
+position; only attention sees the whole window."""
 
 from __future__ import annotations
 
@@ -27,8 +27,7 @@ def layer_apply_paged(x, lp, mixer, ffn, cfg, mode, pages, tables, pos,
                          f"{ffn!r}")
     if mode == "verify":
         h = [rms_norm(xs, lp["ln1"], cfg.norm_eps) for xs in x]
-        mix_out, new_pages = gqa_verify_paged(h, lp, cfg, pages, tables, pos,
-                                              n)
+        mix_out, new_pages = gqa_verify_paged(h, lp, cfg, pages, tables, pos)
         x = [xs + m for xs, m in zip(x, mix_out)]
         if ffn == "mlp":
             x = [xs + mlp(rms_norm(xs, lp["ln2"], cfg.norm_eps), lp)
@@ -55,10 +54,10 @@ def stack_apply_paged(x, params, cfg, mode, pages, tables, pos, n=None,
     """mode "prefill": ``tables`` is one sequence's (n_max,) block table,
     ``pos`` the chunk's start offset, ``n`` the real chunk length (rows past
     it are padding).  mode "decode": ``tables`` is (B, n_max), ``pos`` the
-    per-sequence write positions (B,).  mode "verify": x is W slabs
-    (B, 1, d), ``tables`` (B, n_max), ``pos`` each lane's first-row
-    position pos0 (B,) and ``n`` its live window width (B,).  The pools are
-    written in place.  Returns (x, pages)."""
+    per-sequence write positions (B,).  mode "verify": x is a list of
+    slabs (S, 1, d), ``tables`` (B, n_max), ``pos`` the window's
+    ``VerifyWindow``.  The pools are written in place.  Returns (x,
+    pages)."""
     for i, (mixer, ffn) in enumerate(cfg.prefix_pattern):
         x, _ = layer_apply_paged(x, params["prefix"][f"l{i}"], mixer, ffn,
                                  cfg, mode, pages["prefix"][i], tables, pos,

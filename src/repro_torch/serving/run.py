@@ -6,13 +6,15 @@ sub-configs.  ``BackendSpec.kind`` selects the execution substrate: "sim"
 (the roofline step-time model, default), "torch" (real decoding on a paged
 device KV cache via ``PagedTorchBackend``; size the workload with
 ``WorkloadSpec.prompt_cap``/``output_cap`` so sequences fit the pool), or
-any ``Backend`` instance.  Cluster runs are not ported: ``run`` refuses an
-``ExperimentSpec`` whose ``cluster`` is set."""
+any ``Backend`` instance.  ``ExperimentSpec.prompts`` may supply the
+prompt tokens of the workload's requests (else the backend synthesizes
+them from its seed and the rid).  Cluster runs are not ported: ``run``
+refuses an ``ExperimentSpec`` whose ``cluster`` is set."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Union
+from typing import Callable, Dict, Optional, Sequence, Union
 
 from repro_torch.core.baselines import make_scheduler
 from repro_torch.core.service import ServiceModel
@@ -20,6 +22,7 @@ from repro_torch.obs import MetricsRegistry, Tracer, dump_all
 from repro_torch.serving.backend import Backend
 from repro_torch.serving.engine import EngineConfig, ServeEngine, SimBackend
 from repro_torch.serving.metrics import Summary, summarize
+from repro_torch.serving.request import Request
 from repro_torch.serving.workload import WorkloadGen, WorkloadSpec
 
 
@@ -92,6 +95,9 @@ class ExperimentSpec:
     service: Optional[ServiceModel] = None
     warmup: int = 512               # predictor warm-start sample size
     sched_kwargs: Optional[Dict] = None
+    # prompt tokens of each single request the workload generates (None:
+    # synthesized by the backend); DAG stages spawn later and keep theirs
+    prompts: Optional[Callable[[Request], Optional[Sequence[int]]]] = None
 
     def resolved(self) -> "ExperimentSpec":
         """A copy with every None sub-config replaced by its default."""
@@ -137,6 +143,11 @@ def run(exp: ExperimentSpec) -> Summary:
             pred.warm_start(gen.warmup_requests(exp.warmup))
 
     singles, dags = gen.generate()
+    if exp.prompts is not None:
+        for r in singles:
+            toks = exp.prompts(r)
+            if toks is not None:
+                r.meta["prompt_tokens"] = list(toks)
     eng = ServeEngine(backend, sched, exp.engine, workload=gen,
                       obs=tel.obs, tracer=tel.tracer)
     eng.load(singles, dags)

@@ -32,10 +32,10 @@ is ``decode_batch_n(n=1)``, so streams are equal across horizons.
 Speculative decoding: ``decode_verify_batch`` drafts up to the granted
 depth per lane (``NgramDrafter`` by default), scores each drafted lane's
 window in one ``Model.verify_paged`` forward (padded to ``ROWS`` lanes;
-its rows run in the decode call's shape, so each live row's logits are
-bitwise a decode step's), and accepts or rejects on the device.  Lanes
-without drafts ride a plain one-token decode call in the same step; the
-host reads both results once.
+the live window rows are packed into ``ROWS``-row slabs, the decode
+call's shape, so each live row's logits are bitwise a decode step's), and
+accepts or rejects on the device.  Lanes without drafts ride a plain
+one-token decode call in the same step; the host reads both results once.
 
 Sampling is seeded per (seed, rid, pos) at any temperature (``Sampler``;
 greedy at temperature 0), so streams do not depend on batch composition,
@@ -54,7 +54,7 @@ from repro_torch.configs.archs import reduced_config
 from repro_torch.configs.base import get_config
 from repro_torch.models.convert import (from_host, to_host, tree_leaves,
                                         tree_map)
-from repro_torch.models.model import build_model
+from repro_torch.models.model import build_model, verify_slabs
 from repro_torch.serving.backend import Backend, Sampler
 from repro_torch.serving.drafter import NgramDrafter
 
@@ -135,6 +135,7 @@ class PagedTorchBackend(Backend):
         self._host_t0 = 0.0
         self._pages_step = 0
         # padded call shapes seen so far: ("decode", B, n) / ("prefill", C)
+        # / ("verify", B, W, slabs)
         self._shapes: set = set()
 
         # engine-facing geometry (BlockManager mirrors the device pool)
@@ -388,9 +389,9 @@ class PagedTorchBackend(Backend):
             hist = list(self.prompt_ids(r)) + \
                 self.generated.setdefault(r.rid, [])
             drafts.append(self.drafter.propose(hist, d)[:d])
-        # a window costs its full width in every row-wise op, so lanes the
-        # drafter came up dry on take the plain decode call instead;
-        # sampling is (seed, rid, pos)-keyed, so the split changes no token
+        # lanes the drafter came up dry on take the plain decode call, as
+        # the reference's do; sampling is (seed, rid, pos)-keyed, so the
+        # split changes no token
         dr_ix = [i for i, d in enumerate(drafts) if d]
         pl_ix = [i for i, d in enumerate(drafts) if not d]
         pl_reqs = [reqs[i] for i in pl_ix]
@@ -433,11 +434,11 @@ class PagedTorchBackend(Backend):
         """Inputs of a verify call for drafted lanes, padded to ``ROWS``
         lanes (padding lanes at width 0 on the all-scrap table), copied to
         the device: (tokens (B, W), pos0, widths, tables, remaining budget,
-        rids).  The window width is exact: 1 + the longest draft."""
+        rids, live rows packed in ``ROWS``-row slabs).  The window width is
+        exact: 1 + the longest draft."""
         nr = len(reqs)
         B = _rows(nr)
         W = 1 + max(len(d) for d in drafts)
-        self._shapes.add(("verify", B, W))
         self._pages_step += sum(len(t) for t in tables)
         toks = np.zeros((B, W), np.int32)
         pos0 = np.zeros(B, np.int32)
@@ -454,15 +455,17 @@ class PagedTorchBackend(Backend):
             tabs[j] = self._padded_table(r.rid, tables[j])
             rem[j] = max(1, r.true_output_len - r.decoded)
             rids[j] = r.rid & 0x7FFFFFFF
+        slabs = verify_slabs(widths, W, ROWS)
+        self._shapes.add(("verify", B, W, slabs.shape[0]))
         return tuple(self._dev(a) for a in (toks, pos0, widths, tabs, rem,
-                                             rids))
+                                             rids, slabs))
 
-    def _verify(self, toks, pos0, widths, tabs, rem, rids):
+    def _verify(self, toks, pos0, widths, tabs, rem, rids, slabs):
         """One verify forward plus the on-device accept, no host sync.
         Returns (targets (B, W), emitted (B,)), emitted clamped to the
         lane's remaining output."""
         logits, self.pages = self.model.verify_paged(
-            self.params, self.pages, toks, pos0, widths, tabs)
+            self.params, self.pages, toks, pos0, widths, tabs, slabs)
         self.n_verify_forwards += 1
         targets, emitted = self.sampler.verify_device(logits, toks, rids,
                                                       pos0, widths)

@@ -117,6 +117,41 @@ def test_unported_options_raise():
         run(ExperimentSpec(cluster=object()))
 
 
+def test_run_takes_prompt_tokens():
+    """``ExperimentSpec.prompts`` supplies single requests' prompt tokens:
+    handing back the tokens the backend would synthesize leaves every
+    stream as it was, and a repeated motif changes the streams of the
+    requests it is given to alone."""
+    wl = WorkloadSpec(rate=2.0, duration=2.0, seed=0, prompt_cap=12,
+                      output_cap=4, slo_scale=50.0)
+
+    def streams(prompts):
+        be = _backend(num_blocks=64, max_len=32)
+        summ = run(ExperimentSpec(
+            scheduler="vllm", workload=wl, prompts=prompts,
+            engine=EngineConfig(max_batch=4, prefill_budget=32),
+            backend=BackendSpec(kind=be)))
+        assert summ.n_finished == len(be.generated) > 2
+        return dict(be.generated)
+
+    V = _backend(num_blocks=4, max_len=32).cfg.vocab_size
+
+    def own(r):
+        rng = np.random.default_rng((0, r.rid & 0x7FFFFFFF))
+        return rng.integers(0, V, size=r.prompt_len).tolist()
+
+    def motif(r):
+        return ([3, 1, 4] * r.prompt_len)[:r.prompt_len] if r.rid % 2 \
+            else None
+
+    base = streams(None)
+    assert streams(own) == base
+    moved = streams(motif)
+    assert moved.keys() == base.keys()
+    assert any(moved[rid] != base[rid] for rid in base if rid % 2)
+    assert all(moved[rid] == base[rid] for rid in base if not rid % 2)
+
+
 # ---------------------------------------------------------------------------
 # multi-step decode
 # ---------------------------------------------------------------------------

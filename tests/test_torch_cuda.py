@@ -143,36 +143,73 @@ def test_verify_kernel_matches_plain_and_chained_decode(
     assert pa.launches["fused_verify_attention"] == before + 1
 
 
+class _Replay:
+    """Drafts recorded prompt + output streams back (the prefix match's
+    continuation), so a run that reproduces them accepts its drafts."""
+
+    def __init__(self, streams):
+        self.streams = streams
+
+    def propose(self, tokens, k):
+        hist = [int(t) for t in tokens]
+        for s in self.streams:
+            if len(s) > len(hist) and s[:len(hist)] == hist:
+                return s[len(hist):len(hist) + k]
+        return []
+
+
 def test_reduced_model_streams_equal_across_modes(cuda):
+    """Streams equal across attention modes, decode horizons and
+    speculation, with n-gram drafts and with drafts replayed from the
+    plain run; the replayed drafts are accepted."""
+    import numpy as np
+
+    from repro_torch.configs.archs import reduced_config
     from repro_torch.core.baselines import make_scheduler
     from repro_torch.serving.engine import EngineConfig, ServeEngine
     from repro_torch.serving.request import Request, SLOSpec
     from repro_torch.serving.torch_backend import PagedTorchBackend
 
-    def streams(fused, decode_steps, spec=0, temperature=0.0):
+    rng = np.random.default_rng(0)
+    V = reduced_config("tinyllama-1.1b").vocab_size
+    # one prompt repeats a motif, so the n-gram drafter proposes
+    prompts = {1: rng.integers(0, V, 20).tolist(),
+               2: [11, 42, 7, 99] * 5,
+               3: rng.integers(0, V, 20).tolist()}
+
+    def streams(fused, decode_steps, spec=0, temperature=0.0, drafter=None):
         be = PagedTorchBackend(num_blocks=16, page=16, max_len=64, seed=0,
                                fused=fused, device=cuda,
-                               temperature=temperature, top_k=20)
+                               temperature=temperature, top_k=20,
+                               drafter=drafter)
         eng = ServeEngine(be, make_scheduler("tempo", use_predictor=False),
                           EngineConfig(max_batch=4, prefill_budget=32,
                                        decode_steps=decode_steps,
                                        spec_depth_max=spec))
-        reqs = [Request(rid=i + 1, app="chatbot", arrival=0.0,
+        reqs = [Request(rid=rid, app="chatbot", arrival=0.0,
                         prompt_len=20, true_output_len=10,
                         slo=SLOSpec("throughput", ttlt=1e6))
-                for i in range(3)]
-        # one prompt repeats a motif, so the drafter proposes
-        reqs[1].meta["prompt_tokens"] = [11, 42, 7, 99] * 5
+                for rid in prompts]
+        for r in reqs:
+            r.meta["prompt_tokens"] = prompts[r.rid]
         eng.load(reqs, [])
         fin = eng.run()
         assert len(fin) == 3
         assert spec == 0 or eng.spec_proposed > 0
+        if drafter is not None:
+            assert eng.spec_accepted > 0
         return {r.rid: list(be.generated[r.rid]) for r in fin}
+
+    def replay(ref):
+        return _Replay([prompts[rid] + ref[rid] for rid in prompts])
 
     ref = streams(True, 1)
     assert streams(True, 4) == ref
     assert streams(False, 1) == ref
     assert streams(True, 1, spec=4) == ref
     assert streams(True, 4, spec=4) == ref
+    assert streams(True, 1, spec=4, drafter=replay(ref)) == ref
     hot = streams(True, 1, temperature=0.8)
     assert streams(True, 1, spec=4, temperature=0.8) == hot
+    assert streams(True, 1, spec=4, temperature=0.8,
+                   drafter=replay(hot)) == hot

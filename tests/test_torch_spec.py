@@ -28,7 +28,7 @@ from repro_torch.core.baselines import make_scheduler  # noqa: E402
 from repro_torch.kernels import paged_attention as tpa  # noqa: E402
 from repro_torch.models.convert import (pages_from_numpy,  # noqa: E402
                                         params_from_numpy, tree_map)
-from repro_torch.models.model import build_model  # noqa: E402
+from repro_torch.models.model import build_model, verify_slabs  # noqa: E402
 from repro_torch.serving import prng  # noqa: E402
 from repro_torch.serving.backend import Sampler  # noqa: E402
 from repro_torch.serving.drafter import NullDrafter  # noqa: E402
@@ -274,11 +274,14 @@ def test_verify_paged_matches_reference():
     tree_map(check, tpages, jpages)
 
 
-def test_verify_rows_bitwise_equal_decode_rows():
+@pytest.mark.parametrize("packed", [False, True])
+def test_verify_rows_bitwise_equal_decode_rows(packed):
     """Each live verify row's logits are bitwise the port's decode_paged
     logits for the same token at the same position and batch width, and
     the pools end equal off the scrap page where the decode steps wrote the
-    same rows."""
+    same rows.  Rows run as W slabs of the three lanes' row s, or packed
+    (``verify_slabs``): the 11 live rows in four 3-row slabs, dead rows
+    not computed (logits 0)."""
     tm = build_model(reduced_config(ARCH))
     tp = params_from_numpy(_jax_weights(), "cpu")
     V = tm.cfg.vocab_size
@@ -295,7 +298,9 @@ def test_verify_rows_bitwise_equal_decode_rows():
         np.int32))
     pos0 = _t(np.asarray(lens, np.int32) - 1)
     pages, tables = fresh()
-    lv, pv = tm.verify_paged(tp, pages, toks, pos0, _t(widths), _t(tables))
+    rows = torch.from_numpy(verify_slabs(widths, W, 3)) if packed else None
+    lv, pv = tm.verify_paged(tp, pages, toks, pos0, _t(widths), _t(tables),
+                             rows)
     pages, _ = fresh()
     scrap = torch.full((3, N_MAX), POOL - 1, dtype=torch.int32)
     for s in range(W):
@@ -305,6 +310,8 @@ def test_verify_rows_bitwise_equal_decode_rows():
         for b in range(3):
             if s < widths[b]:
                 assert torch.equal(lv[b, s], ld[b]), (b, s)
+            elif packed:
+                assert not lv[b, s].any(), (b, s)
     tree_map(lambda a, b: torch.equal(a[..., :POOL - 1, :, :, :],
                                       b[..., :POOL - 1, :, :, :]) or
              pytest.fail("pools differ"), pv, pages)
@@ -411,9 +418,12 @@ def _digest(be) -> str:
 
 def _requests(Request, SLOSpec):
     """Staggered arrivals, mixed SLO kinds; two prompts repeat a short
-    motif, so the n-gram drafter has matches at any temperature."""
+    motif, so the n-gram drafter has matches at any temperature.  The
+    first motif request is best-effort (kind "none"): gmg grants such
+    lanes a fixed depth, where SLO lanes' depths follow the margin, and so
+    the measured step times."""
     motif = [11, 42, 7, 99]
-    spec = [(0.00, 20, 8, "latency", None), (0.02, 12, 6, "throughput",
+    spec = [(0.00, 20, 8, "latency", None), (0.02, 12, 6, "none",
                                              motif * 3),
             (0.04, 30, 6, "throughput", None), (0.06, 16, 7, "latency",
                                                 motif * 4)]
