@@ -15,6 +15,13 @@ decode forward, a verify forward and the temperature > 0 sampler, serves
 speculative decoding (vllm and gmg, temperature 0 and 0.8; n-gram drafts
 and drafts replayed from the plain run, which are accepted) with token
 streams equal to plain decoding, and times the kernels with CUDA events.
+Then the full-sequence forward: the flash-attention kernel against its
+plain version (the reference's sweep, ragged S, GQA groups of 3, MLA head
+dims), full-width tinyllama-1.1b and minicpm3-4b in f32 (``decode_step``
+after ``prefill`` equal to ``logits``, one flash launch per layer per
+forward, and for tinyllama the paged path's logits equal too), the bf16
+serving dtype through ``make_prefill_step`` / ``make_serve_step`` (8
+greedy tokens, a profiled prefill forward), and the flash kernel's times.
 Prints the card, the checks, one JSON line of kernel records and,
 last, one JSON line naming the device.  Exits non-zero, with no result
 lines, on any failed check, when CUDA is unavailable, or outside a checkout.
@@ -23,6 +30,7 @@ Imports nothing of the JAX package.
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import os
@@ -40,6 +48,31 @@ SOURCE = "src/repro_torch/csrc/paged_attention.cu"
 REPLACES = {"fused_decode_attention": "src/repro/kernels/paged_attention.py:147",
             "paged_attention": "src/repro/kernels/paged_attention.py:462",
             "fused_verify_attention": "src/repro/kernels/paged_attention.py:290"}
+FLASH_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
+FLASH_REPLACES = "src/repro/kernels/flash_attention.py:64"
+# the full-sequence models: (B, S) of the f32 checks and of the bf16 runs
+FULLSEQ = {"tinyllama-1.1b": ((4, 512), (4, 1024)),
+           "minicpm3-4b": ((2, 256), (2, 1024))}
+GREEDY_STEPS = 8
+# the flash kernel's cases: (B, S, H, KV, Dk, Dv, dtype, causal)
+FLASH_SWEEP = [(B, S, H, KV, D, D, dt, True)          # the reference sweep
+               for B, S, H, KV, D in ((2, 128, 4, 4, 64), (1, 256, 8, 2, 64),
+                                      (2, 256, 4, 1, 128),
+                                      (1, 512, 8, 8, 128))
+               for dt in ("float32", "bfloat16")] + [
+    (1, 128, 4, 4, 64, 64, "float32", False),         # non-causal
+    (2, 77, 32, 4, 64, 64, "float32", True),          # ragged S
+    (1, 1000, 8, 2, 64, 64, "bfloat16", True),
+    (1, 1000, 8, 2, 64, 64, "float32", False),
+    (1, 300, 24, 8, 128, 128, "float32", True),       # G = 3 at D = 128
+    (1, 300, 24, 8, 128, 128, "bfloat16", True),
+    (2, 256, 40, 40, 96, 64, "float32", True),        # MHA, Dk 96, Dv 64
+    (2, 256, 40, 40, 96, 64, "bfloat16", True)]
+# the main path's calls: each model's bf16 prefill and f32 check
+FLASH_MAIN = [(4, 1024, 32, 4, 64, 64, "bfloat16", True),
+              (2, 1024, 40, 40, 96, 64, "bfloat16", True),
+              (4, 512, 32, 4, 64, 64, "float32", True),
+              (2, 256, 40, 40, 96, 64, "float32", True)]
 # the capped mixed workload of the quickstart's real-execution mode
 WORKLOAD = dict(rate=1.5, duration=6.0, seed=0, mix=(2, 1, 1), prompt_cap=40,
                 output_cap=12, slo_scale=20.0)
@@ -637,6 +670,214 @@ def decode_breakdown(torch, be) -> None:
             print(f"    {ms:.4f} ms x{count} {key[:90]}")
 
 
+def flash_inputs(torch, B, S, H, KV, Dk, Dv, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(
+            getattr(torch, dtype))
+
+    return rnd(B, S, H, Dk), rnd(B, S, KV, Dk), rnd(B, S, KV, Dv)
+
+
+def check_flash(torch, fa) -> float:
+    """The flash kernel against its plain version at every case of
+    ``FLASH_SWEEP`` and ``FLASH_MAIN``, within the reference's tolerances
+    (3e-5 f32, 2.5e-2 bf16; ``tests/test_kernels.py``).  Returns the
+    largest difference at the main path's shapes."""
+    worst = 0.0
+    for i, case in enumerate(FLASH_SWEEP + FLASH_MAIN):
+        B, S, H, KV, Dk, Dv, dtype, causal = case
+        q, k, v = flash_inputs(torch, B, S, H, KV, Dk, Dv, dtype, 600 + i)
+        out = fa.flash_attention(q, k, v, causal=causal)
+        ref = fa.flash_attention_ref(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = 3e-5 if dtype == "float32" else 2.5e-2
+        label = (f"{dtype} {'causal' if causal else 'full'} B={B} S={S} "
+                 f"H={H} KV={KV} Dk={Dk} Dv={Dv}")
+        print(f"  {label}: flash_attention max|diff| {err:.3e} "
+              f"(tolerance {tol:g})")
+        check(tuple(out.shape) == (B, S, H, Dv) and err <= tol,
+              f"flash_attention {label}: {err} > {tol}")
+        if case in FLASH_MAIN:
+            worst = max(worst, err)
+    return worst
+
+
+def fullseq(torch, fa, arch) -> int:
+    """One full-width model's full-sequence forward (random bf16 weights
+    from seed 0).  In f32 (copies of those weights, so the tolerance speaks
+    of the algorithm): ``decode_step`` after ``prefill`` of S-1 tokens
+    equals ``logits`` at S-1 within the reference's rtol = atol = 2e-2
+    (``tests/test_models_smoke.py``), one flash launch per layer per
+    forward, and for tinyllama the paged path's (``prefill_paged`` +
+    fused ``decode_paged``) logits equal too.  In bf16, the main path:
+    ``make_prefill_step`` then ``make_serve_step`` for ``GREEDY_STEPS``
+    greedy tokens, flash launches counted from 0 just before and read just
+    after; then one profiled prefill forward.  Returns the main path's
+    flash launches."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models.convert import tree_map
+    from repro_torch.models.model import build_model
+
+    (B, S), (Bs, Ss) = FULLSEQ[arch]
+    cfg = get_config(arch)
+    check(cfg.dtype == "bfloat16", f"{arch} serves in bf16")
+    L = cfg.num_layers
+    model, prefill_step = make_prefill_step(cfg)
+    _, serve_step = make_serve_step(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    m32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+    p32 = tree_map(lambda t: t.float(), params)
+    g = torch.Generator(device="cuda").manual_seed(1)
+
+    def tokens(b, s):
+        return torch.randint(0, cfg.vocab_size, (b, s), generator=g,
+                             device="cuda", dtype=torch.int32)
+
+    def grown(m, caches, b, s):
+        out = m.init_caches(b, s, "cuda")
+        tree_map(lambda z, c: z[tuple(slice(0, n) for n in c.shape)]
+                 .copy_(c), out, caches)
+        return out
+
+    toks = tokens(B, S)
+    counts = [fa.launches["flash_attention"]]
+    full = m32.logits(p32, {"tokens": toks})
+    counts.append(fa.launches["flash_attention"])
+    _, caches = m32.prefill(p32, {"tokens": toks[:, :S - 1]})
+    counts.append(fa.launches["flash_attention"])
+    dec, _ = m32.decode_step(p32, grown(m32, caches, B, S), toks[:, S - 1:],
+                             S - 1)
+    counts.append(fa.launches["flash_attention"])
+    torch.cuda.synchronize()
+    per = [b - a for a, b in zip(counts, counts[1:])]
+    diff = (dec - full[:, S - 1]).abs().max().item()
+    print(f"  {arch} f32 B={B} S={S}: decode_step after prefill vs logits "
+          f"at S-1: max|diff| {diff:.3e}; flash launches per forward "
+          f"(logits, prefill, decode_step) {per}")
+    check(bool(torch.isfinite(full).all())
+          and tuple(full.shape) == (B, S, cfg.vocab_size), "f32 logits")
+    check(bool(torch.allclose(dec, full[:, S - 1], rtol=2e-2, atol=2e-2)),
+          f"{arch}: decode_step differs from logits at S-1")
+    check(per == [L, L, 0], f"{arch}: flash launches {per}, want "
+          f"[{L}, {L}, 0]")
+    if model.supports_paged():
+        page = 16
+        n_max = -(-S // page)
+        pages = m32.init_paged_caches(B * n_max + 1, page, "cuda")
+        tables = torch.arange(B * n_max, dtype=torch.int32,
+                              device="cuda").view(B, n_max)
+        for b in range(B):
+            pages = m32.prefill_paged(p32, pages, toks[b:b + 1, :S - 1], 0,
+                                      tables[b], S - 1)
+        paged, _ = m32.decode_paged(
+            p32, pages, toks[:, S - 1:].contiguous(),
+            torch.full((B,), S - 1, dtype=torch.int32, device="cuda"),
+            tables, fused=True)
+        torch.cuda.synchronize()
+        pdiff = (paged - dec).abs().max().item()
+        print(f"  {arch} f32: paged path (prefill_paged + fused "
+              f"decode_paged) vs decode_step logits: max|diff| {pdiff:.3e}")
+        check(bool(torch.allclose(paged, dec, rtol=2e-2, atol=2e-2)),
+              f"{arch}: paged logits differ from decode_step logits")
+        del pages
+    stoks = tokens(Bs, Ss)
+    ref32, _ = m32.prefill(p32, {"tokens": stoks})
+    del p32, full, caches, dec
+    torch.cuda.empty_cache()
+
+    # the main path, in the serving dtype
+    fa.launches["flash_attention"] = 0
+    t0 = time.perf_counter()
+    logits, caches = prefill_step(params, {"tokens": stoks})
+    first = logits
+    caches = grown(model, caches, Bs, Ss + GREEDY_STEPS)
+    out = []
+    for i in range(GREEDY_STEPS):
+        nxt = logits.argmax(-1).to(torch.int32)[:, None]
+        out.append(nxt)
+        logits, caches = serve_step(params, caches, nxt, Ss + i)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fa.launches["flash_attention"]
+    toks_out = torch.cat(out, dim=1).cpu().tolist()
+    digest = hashlib.sha256(repr(toks_out).encode()).hexdigest()[:16]
+    bdiff = (first - ref32).abs().max().item()
+    print(f"  {arch} bf16 B={Bs} S={Ss}: make_prefill_step + "
+          f"{GREEDY_STEPS} make_serve_step greedy tokens in {wall:.3f} s "
+          f"wall, flash launches {launches}, token digest {digest}, "
+          f"prefill logits vs f32 max|diff| {bdiff:.3e}")
+    check(launches == L, f"{arch}: {launches} flash launches on the main "
+          f"path, want {L}")
+    check(bool(torch.isfinite(logits).all())
+          and tuple(logits.shape) == (Bs, cfg.vocab_size)
+          and all(0 <= t < cfg.vocab_size for r in toks_out for t in r),
+          f"{arch}: serving logits / tokens")
+    del caches, logits, first, ref32
+    torch.cuda.empty_cache()
+
+    wall_ms, busy_ms, n, top = profiled(
+        torch, lambda: prefill_step(params, {"tokens": stoks}), reps=5)
+    flash_ms = sum(ms for ms, _, key in top if "flash_kernel" in key)
+    check(busy_ms > 0 and flash_ms > 0,
+          f"{arch}: the profiler saw no device time of the flash kernel")
+    print(f"  {arch} bf16 prefill forward B={Bs} S={Ss}: wall "
+          f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms (idle share "
+          f"{1 - busy_ms / wall_ms:.3f}), {n:.0f} kernels, flash kernel "
+          f"{flash_ms:.3f} ms ({flash_ms / busy_ms:.3f} of busy)")
+    for ms, count, key in top[:8]:
+        print(f"    {ms:.4f} ms x{count} {key[:90]}")
+    del params, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def flash_times(torch, fa, flush) -> dict:
+    """The flash kernel at the two prefill shapes (bf16, causal): kernel,
+    plain version and one SDPA call on (B, H, S, D) with K/V expanded to H
+    heads beforehand, medians of CUDA events with the L2 flushed; the bound
+    counts q·k on bf16 operands at 989 TFLOP/s plus p·v on f32
+    probabilities at 67 TFLOP/s against the bytes at 3.35 TB/s.  Returns
+    {arch: (ms, plain_ms, library_ms, bound_ms, bound_by)}."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = {}
+    shapes = {"tinyllama-1.1b": (4, 1024, 32, 4, 64, 64),
+              "minicpm3-4b": (2, 1024, 40, 40, 96, 64)}
+    for i, (arch, (B, S, H, KV, Dk, Dv)) in enumerate(shapes.items()):
+        q, k, v = flash_inputs(torch, B, S, H, KV, Dk, Dv, "bfloat16",
+                               700 + i)
+        ms = median_ms(torch, lambda: fa.flash_attention(q, k, v), flush)
+        plain_ms = median_ms(torch, lambda: fa.flash_attention_ref(q, k, v),
+                             flush)
+        G = H // KV
+        qs = q.transpose(1, 2).contiguous()
+        ks = k.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
+        vs = v.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
+        lib_ms = median_ms(torch, lambda: sdpa(qs, ks, vs, is_causal=True),
+                           flush)
+        pairs = S * (S + 1) // 2             # causal (query, key) pairs
+        qk, pv = 2 * B * H * Dk * pairs, 2 * B * H * Dv * pairs
+        nbytes = 2 * B * S * (H * Dk + KV * Dk + KV * Dv + H * Dv)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = (qk / BF16_FLOPS + pv / F32_FLOPS) * 1e3
+        t_tc = (qk + pv) / BF16_FLOPS * 1e3
+        bound_ms = max(t_bytes, t_ops)
+        by = "bytes" if t_bytes >= t_ops else "operations"
+        print(f"  {arch} B={B} S={S} H={H} KV={KV} Dk={Dk} Dv={Dv}: kernel "
+              f"{ms:.4f} ms, bound {bound_ms:.5f} ms by {by} (q.k "
+              f"{qk / 1e9:.3f} GFLOP at 989 bf16 TFLOP/s + p.v "
+              f"{pv / 1e9:.3f} GFLOP at 67 f32 TFLOP/s = {t_ops:.5f} ms; "
+              f"{nbytes} B / 3.35 TB/s = {t_bytes:.5f} ms; both products "
+              f"on the tensor cores, p in bf16 as SDPA rounds it: "
+              f"{t_tc:.5f} ms), plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} "
+              f"ms")
+        rows[arch] = (ms, plain_ms, lib_ms, bound_ms, by)
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -645,6 +886,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.serving.torch_backend import ROWS
 
@@ -662,10 +904,11 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}")
 
     # 2. build
-    t0 = time.perf_counter()
-    build.build(["paged_attention"])
-    print(f"build: {time.perf_counter() - t0:.2f} s "
-          f"({build.library_path('paged_attention').name})")
+    t_start = t0 = time.perf_counter()
+    libs = ["paged_attention", "flash_attention"]
+    build.build(libs)
+    print(f"build: {time.perf_counter() - t0:.2f} s ("
+          + ", ".join(build.library_path(n).name for n in libs) + ")")
 
     # 3. kernels against their plain versions
     print("kernels vs plain versions:")
@@ -882,7 +1125,24 @@ def main() -> int:
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             library_ms=lib_of[name]))
 
-    # 6. kernel records, then 7. the device
+    # 6. the full-sequence forward: the flash kernel against its plain
+    # version, then each model in f32 and on its bf16 main path
+    print("flash_attention vs its plain version:")
+    flash_err = check_flash(torch, fa)
+    print("full-sequence forward, full width (random weights from seed 0):")
+    flash_launches = sum(fullseq(torch, fa, arch) for arch in FULLSEQ)
+    print("flash_attention times (bf16, causal, L2 flushed; median of CUDA "
+          "events):")
+    ft = flash_times(torch, fa, flush)
+    ms, plain_ms, lib_ms, bound_ms, by = ft["tinyllama-1.1b"]
+    records.append(dict(
+        name="flash_attention", route="cuda", source=FLASH_SOURCE,
+        replaces=FLASH_REPLACES, launches=flash_launches,
+        max_abs_err=flash_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=by, library_ms=lib_ms))
+    print(f"total: {time.perf_counter() - t_start:.1f} s")
+
+    # 7. kernel records, then 8. the device
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,11 @@
-"""Import the architecture modules the port serves so their ``@register``
+"""Import the architecture modules the port runs so their ``@register``
 decorators run, plus the reduced-config factory for CPU tests."""
 
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs import tinyllama_1p1b  # noqa: F401
+from repro_torch.configs import minicpm3_4b, tinyllama_1p1b  # noqa: F401
 from repro_torch.configs.base import ModelConfig, get_config
 
 

@@ -1,1 +1,2 @@
-"""Paged transformer model of the port (reference layout)."""
+"""Transformer model of the port (reference layout): full-sequence and
+paged forwards."""

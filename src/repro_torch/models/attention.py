@@ -1,7 +1,15 @@
-"""GQA attention over a paged KV cache (the serving path of the reference's
-``repro.models.attention``): chunked prefill in plain PyTorch ops, batched
-one-token decode and speculative verification through the paged-attention
-kernels.  Page pools are updated in place."""
+"""Attention of the reference's ``repro.models.attention``, in two paths.
+
+Full sequence (``Model.logits`` / ``prefill`` / ``decode_step``): GQA
+(``gqa_apply``) and MLA (``mla_apply``).  Their train/prefill attention
+goes through ``causal_attention``, one ``flash_attention`` kernel launch
+per layer; their one-token decode attends over a contiguous cache in f32
+torch ops, as the reference's jnp code does, and writes the cache in
+place.
+
+Paged serving: chunked prefill in plain PyTorch ops, batched one-token
+decode and speculative verification through the paged-attention kernels.
+Page pools are updated in place."""
 
 from __future__ import annotations
 
@@ -9,13 +17,14 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import (NEG_INF,
                                                  fused_decode_attention,
                                                  fused_verify_attention,
                                                  paged_attention, paged_gather,
                                                  paged_kv_append,
                                                  paged_kv_append_batch)
-from repro_torch.models.layers import apply_rope, rope_tables
+from repro_torch.models.layers import apply_rope, rms_norm, rope_tables
 
 
 class VerifyWindow(NamedTuple):
@@ -38,6 +47,131 @@ def _qkv(x, p):
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
     return q, k, v
+
+
+def _positions(mode, S: int, index, device) -> torch.Tensor:
+    """Rope positions: (1,) the decode token's ``index`` (an int or a
+    one-element tensor), else arange(S)."""
+    if mode != "decode":
+        return torch.arange(S, device=device)
+    if isinstance(index, torch.Tensor):
+        return index.reshape(1).to(device=device, dtype=torch.long)
+    return torch.full((1,), int(index), dtype=torch.long, device=device)
+
+
+def causal_attention(q, k, v, *, scale):
+    """Causal attention of the full-sequence forward: query i attends keys
+    0..i.  q: (B,S,H,Dk); k: (B,S,KV,Dk); v: (B,S,KV,Dv), all contiguous.
+    Returns (B,S,H,Dv) in q's dtype.
+
+    One ``flash_attention`` launch.  The reference's ``rect`` and
+    ``triangle`` schedules are XLA sharding and FLOP strategies for this
+    one function; the kernel's key loop stops at the causal diagonal, which
+    is what ``triangle`` buys, so the port has no schedules."""
+    return flash_attention(q, k, v, causal=True, scale=scale)
+
+
+def _decode_mask(pos, S: int):
+    """(S,) True where a cache slot is at or before the decode position."""
+    return torch.arange(S, device=pos.device) <= pos
+
+
+def gqa_apply(x, p, cfg, mode, cache=None, index=None):
+    """GQA attention of the full-sequence forward.  x: (B,S,D) normed.
+
+    mode "train" / "prefill": causal attention over the S positions through
+    ``causal_attention``; prefill returns the cache {"k", "v"} (B,S,KV,Dh).
+    mode "decode": S == 1; the token's K/V is written IN PLACE into
+    ``cache`` (B,Smax,KV,Dh) at ``index`` (< Smax), then it attends over
+    slots 0..index in f32.  Returns (out (B,S,D), cache or None)."""
+    B, S, _ = x.shape
+    H, KV, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    q, k, v = _qkv(x, p)
+    pos = _positions(mode, S, index, x.device)
+    if cfg.positional == "rope":
+        cos, sin = rope_tables(pos, Dh, cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    scale = Dh ** -0.5
+    if mode in ("train", "prefill"):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        o = causal_attention(q, k, v, scale=scale)
+        new_cache = {"k": k, "v": v} if mode == "prefill" else None
+    elif mode == "decode":
+        ck, cv = cache["k"], cache["v"]
+        ck.index_copy_(1, pos, k.to(ck.dtype))
+        cv.index_copy_(1, pos, v.to(cv.dtype))
+        qg = q.reshape(B, 1, KV, H // KV, Dh).float()
+        s = torch.einsum("bqkgd,bskd->bkgqs", qg, ck.float()) * scale
+        s = s.masked_fill(~_decode_mask(pos, ck.shape[1]), NEG_INF)
+        w = torch.softmax(s, dim=-1)
+        o = torch.einsum("bkgqs,bskd->bqkgd", w, cv.float())
+        o = o.reshape(B, 1, H, Dh)
+        new_cache = {"k": ck, "v": cv}
+    else:
+        raise ValueError(f"unknown mode {mode!r} (train | prefill | decode)")
+    out = torch.einsum("bshk,hkd->bsd", o.to(x.dtype), p["wo"])
+    return out, new_cache
+
+
+def _mla_q(x, p, cfg):
+    """MLA queries (B,S,H, nope+rope), through the q LoRA when it has one."""
+    if cfg.q_lora_rank:
+        cq = rms_norm(x @ p["w_dq"], p["q_ln"], cfg.norm_eps)
+        return torch.einsum("bsr,rhk->bshk", cq, p["w_uq"])
+    return torch.einsum("bsd,dhk->bshk", x, p["w_q"])
+
+
+def mla_apply(x, p, cfg, mode, cache=None, index=None):
+    """MLA (multi-head latent attention) of the full-sequence forward.
+    x: (B,S,D) normed.
+
+    mode "train" / "prefill": per-head K/V are materialised from the latent
+    (k = [k_nope, k_rope], Dk = nope + rope; v of v_head_dim) and attended
+    through ``causal_attention``; prefill returns the cache {"ckv" (B,S,r),
+    "kr" (B,S,rope)}.  mode "decode": the absorbed form, in f32: the token's
+    latent and rope key are written IN PLACE into ``cache`` at ``index``,
+    queries are absorbed through w_uk and outputs expanded through w_uv.
+    Returns (out (B,S,D), cache or None)."""
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    nope, rope_d = cfg.qk_nope_dim, cfg.qk_rope_dim
+    scale = (nope + rope_d) ** -0.5
+    q = _mla_q(x, p, cfg)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    ckv = rms_norm(x @ p["w_dkv"], p["kv_ln"], cfg.norm_eps)    # (B,S,r)
+    k_rope = (x @ p["w_kr"])[:, :, None, :]                     # (B,S,1,rope)
+    pos = _positions(mode, S, index, x.device)
+    cos, sin = rope_tables(pos, rope_d, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, cos, sin)
+    k_rope = apply_rope(k_rope, cos, sin)
+    if mode in ("train", "prefill"):
+        k_nope = torch.einsum("bsr,rhk->bshk", ckv, p["w_uk"])
+        v = torch.einsum("bsr,rhv->bshv", ckv, p["w_uv"]).contiguous()
+        k = torch.cat([k_nope, k_rope.expand(B, S, H, rope_d).to(
+            k_nope.dtype)], dim=-1)
+        qq = torch.cat([q_nope, q_rope.to(q_nope.dtype)], dim=-1)
+        o = causal_attention(qq, k, v, scale=scale)             # (B,S,H,vd)
+        new_cache = ({"ckv": ckv, "kr": k_rope[:, :, 0, :]}
+                     if mode == "prefill" else None)
+    elif mode == "decode":
+        cc, ckr = cache["ckv"], cache["kr"]
+        cc.index_copy_(1, pos, ckv.to(cc.dtype))
+        ckr.index_copy_(1, pos, k_rope[:, :, 0, :].to(ckr.dtype))
+        q_abs = torch.einsum("bthn,rhn->bthr", q_nope.float(),
+                             p["w_uk"].float())                 # (B,1,H,r)
+        s = (torch.einsum("bthr,bsr->bhts", q_abs, cc.float())
+             + torch.einsum("bthp,bsp->bhts", q_rope.float(),
+                            ckr.float())) * scale
+        s = s.masked_fill(~_decode_mask(pos, cc.shape[1]), NEG_INF)
+        w = torch.softmax(s, dim=-1)
+        o_lat = torch.einsum("bhts,bsr->bthr", w, cc.float())
+        o = torch.einsum("bthr,rhv->bthv", o_lat, p["w_uv"].float())
+        new_cache = {"ckv": cc, "kr": ckr}
+    else:
+        raise ValueError(f"unknown mode {mode!r} (train | prefill | decode)")
+    out = torch.einsum("bshv,hvd->bsd", o.to(x.dtype), p["wo"])
+    return out, new_cache
 
 
 def gqa_prefill_paged(x, p, cfg, pages, block_table, start: int, n: int):

@@ -1,12 +1,18 @@
-"""The paged-serving subset of the reference's model API
-(``repro.models.model``), on PyTorch tensors.
+"""The reference's model API (``repro.models.model``) on PyTorch tensors,
+for "attn" (GQA) and "mla" stacks with "mlp" or "none" FFNs: the
+full-sequence forward (``logits``, ``prefill``, ``decode_step`` over
+contiguous caches) and the paged-serving entry points (``prefill_paged``,
+``decode_paged``, ``verify_paged``; GQA stacks).
 
 Parameters are a plain dict of tensors in the reference's layout:
 ``embed`` (V, d); ``prefix`` {"l{i}": layer}; ``units`` {"l{i}": layer},
 every leaf stacked on a leading ``num_units`` dim; ``final_norm`` (d,);
 ``lm_head`` (d, V_padded).  An attention layer holds ln1, wq (d, H, Dh),
-wk/wv (d, KV, Dh), wo (H, Dh, d), ln2, w_gate/w_up (d, d_ff), w_down
-(d_ff, d).  With the same layout, weights carried over from the JAX
+wk/wv (d, KV, Dh), wo (H, Dh, d); an MLA layer ln1, w_dq (d, q_lora),
+q_ln, w_uq (q_lora, H, nope+rope) (or w_q (d, H, nope+rope) without a q
+LoRA), w_dkv (d, r), kv_ln, w_kr (d, rope), w_uk (r, H, nope), w_uv (r,
+H, v_head), wo (H, v_head, d); an "mlp" FFN ln2, w_gate/w_up (d, d_ff),
+w_down (d_ff, d).  With the same layout, weights carried over from the JAX
 package (``convert.params_from_numpy``) compute the same function.
 """
 
@@ -21,7 +27,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import VerifyWindow
 from repro_torch.models.layers import rms_norm
-from repro_torch.models.transformer import stack_apply_paged
+from repro_torch.models.transformer import stack_apply, stack_apply_paged
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -47,17 +53,37 @@ class Model:
             return (w * 0.02).to(dt)
 
         def layer(mixer, ffn, stack=0):
-            if mixer != "attn" or ffn not in ("mlp", "none"):
-                raise ValueError(f"paged model supports attn+mlp layers, "
-                                 f"got {(mixer, ffn)}")
+            if mixer not in ("attn", "mla") or ffn not in ("mlp", "none"):
+                raise ValueError(f"the port supports attn/mla layers with "
+                                 f"mlp/none FFNs, got {(mixer, ffn)}")
             lead = (stack,) if stack else ()
             d, H, KV, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                             cfg.resolved_head_dim)
-            p = {"ln1": torch.ones(lead + (d,), dtype=dt, device=dev),
-                 "wq": dense(*lead, d, H, hd), "wk": dense(*lead, d, KV, hd),
-                 "wv": dense(*lead, d, KV, hd), "wo": dense(*lead, H, hd, d)}
+
+            def ones(*shape):
+                return torch.ones(lead + shape, dtype=dt, device=dev)
+
+            p = {"ln1": ones(d)}
+            if mixer == "attn":
+                p.update(wq=dense(*lead, d, H, hd),
+                         wk=dense(*lead, d, KV, hd),
+                         wv=dense(*lead, d, KV, hd),
+                         wo=dense(*lead, H, hd, d))
+            else:
+                qk, r = cfg.qk_head_dim, cfg.kv_lora_rank
+                if cfg.q_lora_rank:
+                    p.update(w_dq=dense(*lead, d, cfg.q_lora_rank),
+                             q_ln=ones(cfg.q_lora_rank),
+                             w_uq=dense(*lead, cfg.q_lora_rank, H, qk))
+                else:
+                    p.update(w_q=dense(*lead, d, H, qk))
+                p.update(w_dkv=dense(*lead, d, r), kv_ln=ones(r),
+                         w_kr=dense(*lead, d, cfg.qk_rope_dim),
+                         w_uk=dense(*lead, r, H, cfg.qk_nope_dim),
+                         w_uv=dense(*lead, r, H, cfg.v_head_dim),
+                         wo=dense(*lead, H, cfg.v_head_dim, d))
             if ffn == "mlp":
-                p.update(ln2=torch.ones(lead + (d,), dtype=dt, device=dev),
+                p.update(ln2=ones(d),
                          w_gate=dense(*lead, d, cfg.d_ff),
                          w_up=dense(*lead, d, cfg.d_ff),
                          w_down=dense(*lead, cfg.d_ff, d))
@@ -72,6 +98,88 @@ class Model:
             "final_norm": torch.ones(cfg.d_model, dtype=dt, device=dev),
             "lm_head": dense(cfg.d_model, cfg.vocab_padded),
         }
+
+    # ------------------------------------------------------------------
+    # Full-sequence forward (the reference's logits / prefill / decode_step)
+    # ------------------------------------------------------------------
+    def _embed(self, params, tokens):
+        """Token embeddings; frontend "none" with rope or no positional
+        encoding (rope is applied inside attention)."""
+        cfg = self.cfg
+        if cfg.frontend != "none" or cfg.positional not in ("rope", "none"):
+            raise ValueError(f"the port embeds tokens with rope or no "
+                             f"positions, got frontend {cfg.frontend!r}, "
+                             f"positional {cfg.positional!r}")
+        return params["embed"][tokens.long()]
+
+    def _lm_head(self, params, x):
+        """Final norm and the lm_head product in f32 (exact products of the
+        stored values, f32 sums), as the reference's
+        ``preferred_element_type=float32``; padded vocab columns cut."""
+        x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
+        logits = x.float() @ self._head_f32(params["lm_head"])
+        return logits[..., :self.cfg.vocab_size]
+
+    def logits(self, params, batch):
+        """Full-sequence logits (B, S, V) f32 of ``batch["tokens"]`` (B, S);
+        one ``flash_attention`` launch per layer."""
+        x = self._embed(params, batch["tokens"])
+        x, _ = stack_apply(x, params, self.cfg, "train")
+        return self._lm_head(params, x)
+
+    def prefill(self, params, batch):
+        """Prompt forward: returns (logits (B, V) f32 at the last position,
+        caches) for ``batch["tokens"]`` (B, S); caches as ``cache_specs(B,
+        S)``."""
+        x = self._embed(params, batch["tokens"])
+        x, caches = stack_apply(x, params, self.cfg, "prefill")
+        return self._lm_head(params, x[:, -1]), caches
+
+    def decode_step(self, params, caches, tokens, index):
+        """One token per sequence: tokens (B, 1) int at position ``index``
+        (an int or a one-element tensor; the next write slot, below the
+        caches' length).  The caches are written IN PLACE and returned.
+        Returns (logits (B, V) f32, caches)."""
+        if not isinstance(index, torch.Tensor):
+            index = torch.full((1,), int(index), dtype=torch.long,
+                               device=tokens.device)
+        x = self._embed(params, tokens)
+        x, caches = stack_apply(x, params, self.cfg, "decode", caches=caches,
+                                index=index)
+        return self._lm_head(params, x)[:, 0], caches
+
+    def cache_specs(self, B: int, S: int):
+        """Caches of the full-sequence forward as ``meta`` tensors, per
+        layer: "attn" k/v (B, S, KV, Dh); "mla" ckv (B, S, r) and kr (B, S,
+        rope).  Unit caches carry the leading num_units dim."""
+        cfg = self.cfg
+        dt = _dtype(cfg)
+
+        def cache(mixer, *lead):
+            def t(*shape):
+                return torch.empty(lead + shape, dtype=dt, device="meta")
+            if mixer == "attn":
+                KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+                return {"k": t(B, S, KV, hd), "v": t(B, S, KV, hd)}
+            if mixer == "mla":
+                return {"ckv": t(B, S, cfg.kv_lora_rank),
+                        "kr": t(B, S, cfg.qk_rope_dim)}
+            raise ValueError(f"no cache for mixer {mixer!r} in the port")
+
+        return {"prefix": tuple(cache(m) for m, _ in cfg.prefix_pattern),
+                "units": {f"l{i}": cache(m, cfg.num_units)
+                          for i, (m, _) in enumerate(cfg.unit_pattern)}}
+
+    def init_caches(self, B: int, S: int, device):
+        """Zero caches of ``cache_specs(B, S)`` on ``device``."""
+        specs = self.cache_specs(B, S)
+
+        def zeros(c):
+            return {n: torch.zeros(s.shape, dtype=s.dtype, device=device)
+                    for n, s in c.items()}
+
+        return {"prefix": tuple(zeros(c) for c in specs["prefix"]),
+                "units": {k: zeros(c) for k, c in specs["units"].items()}}
 
     # ------------------------------------------------------------------
     def supports_paged(self) -> bool:
@@ -149,9 +257,7 @@ class Model:
         x = params["embed"][tokens.long()]
         x, pages = stack_apply_paged(x, params, self.cfg, "decode", pages,
                                      block_tables, positions, fused=fused)
-        x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
-        logits = x[:, 0].float() @ self._head_f32(params["lm_head"])
-        return logits[:, :self.cfg.vocab_size], pages
+        return self._lm_head(params, x)[:, 0], pages
 
     def verify_paged(self, params, pages, tokens, pos0, widths,
                      block_tables, rows=None):
@@ -185,13 +291,11 @@ class Model:
         x = [params["embed"][t[:, None]] for t in tok[rows]]
         x, pages = stack_apply_paged(x, params, self.cfg, "verify", pages,
                                      block_tables, win)
-        head = self._head_f32(params["lm_head"])
-        logits = head.new_zeros((B * W + 1, head.shape[1]))
+        logits = x[0].new_zeros((B * W + 1, self.cfg.vocab_size),
+                                dtype=torch.float32)
         logits[rows.reshape(-1)] = torch.cat(
-            [rms_norm(xs, params["final_norm"], self.cfg.norm_eps)[:, 0]
-             .float() @ head for xs in x])
-        return (logits[:B * W].view(B, W, -1)[..., :self.cfg.vocab_size],
-                pages)
+            [self._lm_head(params, xs)[:, 0] for xs in x])
+        return logits[:B * W].view(B, W, -1), pages
 
 
 def verify_slabs(widths, W: int, slab: int) -> np.ndarray:

@@ -1,7 +1,11 @@
-"""Layer assembly for paged serving: attention + SwiGLU blocks, the prefix
-layers, then ``num_units`` repetitions of the unit pattern.  Unit
-parameters and page pools carry a leading ``num_units`` dim, as in the
-reference; a Python loop over units takes the place of ``lax.scan``.
+"""Layer assembly: attention + SwiGLU blocks, the prefix layers, then
+``num_units`` repetitions of the unit pattern.  Unit parameters, caches
+and page pools carry a leading ``num_units`` dim, as in the reference; a
+Python loop over units takes the place of ``lax.scan``.
+
+Full-sequence forward (``stack_apply``): "attn" (GQA) and "mla" mixers,
+"mlp" and "none" FFNs.  Paged serving (``stack_apply_paged``): "attn"
+mixers.
 
 Mode "verify" (speculative decoding) carries the hidden states as a list
 of slabs (S, 1, d) of window rows and runs every row-wise op (norms,
@@ -12,9 +16,77 @@ position; only attention sees the whole window."""
 
 from __future__ import annotations
 
-from repro_torch.models.attention import (gqa_decode_paged,
-                                         gqa_prefill_paged, gqa_verify_paged)
+import torch
+
+from repro_torch.models.attention import (gqa_apply, gqa_decode_paged,
+                                         gqa_prefill_paged, gqa_verify_paged,
+                                         mla_apply)
 from repro_torch.models.layers import mlp, rms_norm
+
+MIXERS = {"attn": gqa_apply, "mla": mla_apply}
+
+
+def layer_apply(x, lp, mixer, ffn, cfg, mode, cache=None, index=None):
+    """One block of the full-sequence forward; returns (x, cache)."""
+    if mixer not in MIXERS:
+        raise ValueError(f"the port's full-sequence forward supports "
+                         f"{sorted(MIXERS)} mixers, got {mixer!r}")
+    if ffn not in ("mlp", "none"):
+        raise ValueError(f"the port's full-sequence forward supports 'mlp' "
+                         f"and 'none' FFNs, got {ffn!r}")
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    mix_out, new_cache = MIXERS[mixer](h, lp, cfg, mode, cache=cache,
+                                       index=index)
+    x = x + mix_out
+    if ffn == "mlp":
+        x = x + mlp(rms_norm(x, lp["ln2"], cfg.norm_eps), lp)
+    return x, new_cache
+
+
+def unit_apply(x, unit_params, cfg, mode, unit_caches=None, index=None):
+    """One repetition of the unit pattern; returns (x, {key: cache})."""
+    new_caches = {}
+    for i, (mixer, ffn) in enumerate(cfg.unit_pattern):
+        key = f"l{i}"
+        cache_i = unit_caches[key] if unit_caches is not None else None
+        x, new_caches[key] = layer_apply(x, unit_params[key], mixer, ffn,
+                                         cfg, mode, cache=cache_i,
+                                         index=index)
+    return x, new_caches
+
+
+def _unit_slice(tree, u):
+    return {key: {name: leaf[u] for name, leaf in layer.items()}
+            for key, layer in tree.items()}
+
+
+def stack_apply(x, params, cfg, mode, caches=None, index=None):
+    """The full-sequence stack.  mode "train": returns (x, None).  mode
+    "prefill": returns (x, caches), unit caches stacked on a leading
+    num_units dim.  mode "decode": ``caches`` (as ``Model.init_caches``
+    makes them) are written in place at ``index`` and returned."""
+    new_prefix = []
+    for i, (mixer, ffn) in enumerate(cfg.prefix_pattern):
+        cache_i = caches["prefix"][i] if caches is not None else None
+        x, nc = layer_apply(x, params["prefix"][f"l{i}"], mixer, ffn, cfg,
+                            mode, cache=cache_i, index=index)
+        new_prefix.append(nc)
+    per_unit = []
+    for u in range(cfg.num_units):
+        ucache = (_unit_slice(caches["units"], u) if mode == "decode"
+                  else None)
+        x, nc = unit_apply(x, _unit_slice(params["units"], u), cfg, mode,
+                           ucache, index)
+        per_unit.append(nc)
+    if mode == "train":
+        return x, None
+    if mode == "decode":
+        # the unit caches were written in place through their slices
+        return x, {"prefix": tuple(new_prefix), "units": caches["units"]}
+    units = {key: {name: torch.stack([nc[key][name] for nc in per_unit])
+                   for name in per_unit[0][key]}
+             for key in per_unit[0]}
+    return x, {"prefix": tuple(new_prefix), "units": units}
 
 
 def layer_apply_paged(x, lp, mixer, ffn, cfg, mode, pages, tables, pos,

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
 version (the verify kernel also bitwise against chained decode-kernel
-launches), and the reduced model's token streams equal across attention
-modes, decode horizons and speculation.  Marked ``cuda``; skips without a
+launches), the reduced model's token streams equal across attention
+modes, decode horizons and speculation, and the reduced full-sequence
+forward on the card equal to the CPU's.  Marked ``cuda``; skips without a
 GPU.  Run on the GPU machine with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -213,3 +214,74 @@ def test_reduced_model_streams_equal_across_modes(cuda):
     assert streams(True, 1, spec=4, temperature=0.8) == hot
     assert streams(True, 1, spec=4, temperature=0.8,
                    drafter=replay(hot)) == hot
+
+
+@pytest.mark.parametrize("dtype,causal,B,S,H,KV,Dk,Dv", [
+    (torch.float32, True, 2, 128, 4, 4, 64, 64),     # the reference sweep
+    (torch.bfloat16, True, 1, 256, 8, 2, 64, 64),
+    (torch.float32, True, 2, 256, 4, 1, 128, 128),
+    (torch.bfloat16, True, 1, 512, 8, 8, 128, 128),
+    (torch.float32, False, 1, 128, 4, 4, 64, 64),    # non-causal
+    (torch.float32, True, 2, 77, 4, 2, 16, 16),      # ragged S, reduced dims
+    (torch.bfloat16, False, 1, 1000, 8, 2, 64, 64),  # ragged, non-causal
+    (torch.float32, True, 1, 300, 24, 8, 128, 128),  # G = 3
+    (torch.bfloat16, True, 2, 200, 40, 40, 96, 64),  # MLA head dims
+    (torch.float32, True, 2, 33, 4, 4, 24, 16),      # reduced MLA dims
+    (torch.float32, True, 3, 1, 4, 2, 64, 64),       # S = 1
+])
+def test_flash_kernel_matches_plain_version(cuda, dtype, causal, B, S, H,
+                                            KV, Dk, Dv):
+    """The reference's tolerances (``tests/test_kernels.py``): 3e-5 in f32,
+    2.5e-2 in bf16."""
+    from repro_torch.kernels import flash_attention as fa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda).manual_seed(S + Dk)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=cuda).to(dtype)
+
+    q, k, v = rnd(B, S, H, Dk), rnd(B, S, KV, Dk), rnd(B, S, KV, Dv)
+    before = fa.launches["flash_attention"]
+    out = fa.flash_attention(q, k, v, causal=causal)
+    ref = fa.flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.launches["flash_attention"] == before + 1
+    assert out.shape == (B, S, H, Dv) and out.dtype == dtype
+    atol = 3e-5 if dtype == torch.float32 else 2.5e-2
+    assert (out.float() - ref.float()).abs().max().item() <= atol
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "minicpm3-4b"])
+def test_reduced_fullseq_forward_on_card_matches_cpu(cuda, arch):
+    """Reduced f32 model: logits, prefill and decode_step on the card
+    within 1e-4 of the CPU's, with one flash launch per layer per
+    forward."""
+    from repro_torch.configs.archs import reduced_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.convert import tree_map
+    from repro_torch.models.model import build_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced_config(arch)
+    m = build_model(cfg)
+    cpu = m.init(torch.Generator().manual_seed(0))
+    dev = tree_map(lambda t: t.to(cuda), cpu)
+    B, S = 2, 70
+    toks = torch.randint(0, cfg.vocab_size, (B, S),
+                         generator=torch.Generator().manual_seed(1),
+                         dtype=torch.int32)
+    before = fa.launches["flash_attention"]
+    lg = m.logits(dev, {"tokens": toks.to(cuda)})
+    assert fa.launches["flash_attention"] == before + cfg.num_layers
+    ref = m.logits(cpu, {"tokens": toks})
+    assert (lg.cpu() - ref).abs().max().item() <= 1e-4
+    outs = []
+    for params, d in ((cpu, "cpu"), (dev, cuda)):
+        _, caches = m.prefill(params, {"tokens": toks[:, :S - 1].to(d)})
+        grown = m.init_caches(B, S, d)
+        tree_map(lambda z, c: z[tuple(slice(0, n) for n in c.shape)]
+                 .copy_(c), grown, caches)
+        logits, _ = m.decode_step(params, grown, toks[:, S - 1:].to(d),
+                                  S - 1)
+        outs.append(logits.cpu())
+    assert (outs[0] - outs[1]).abs().max().item() <= 1e-4
+    assert (outs[1] - ref[:, S - 1]).abs().max().item() <= 2e-2

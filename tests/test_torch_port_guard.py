@@ -26,7 +26,7 @@ VERBATIM = [
     "core/gmg.py", "core/baselines.py",
     "serving/request.py", "serving/kvcache.py", "serving/workload.py",
     "serving/metrics.py", "serving/engine.py", "serving/drafter.py",
-    "configs/base.py", "configs/tinyllama_1p1b.py",
+    "configs/base.py", "configs/tinyllama_1p1b.py", "configs/minicpm3_4b.py",
 ]
 _IMPORT = re.compile(r"^(\s*)(from|import) repro(?=[.\s])", re.M)
 
@@ -49,7 +49,10 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     finder refuses ``jax`` and ``repro``."""
     mods = _port_modules()
     assert {"repro_torch.serving.torch_backend",
-            "repro_torch.serving.prng"} <= set(mods)
+            "repro_torch.serving.prng",
+            "repro_torch.kernels.flash_attention",
+            "repro_torch.launch.steps",
+            "repro_torch.models.attention"} <= set(mods)
     code = textwrap.dedent(f"""
         import importlib, importlib.abc, sys
         class Refuse(importlib.abc.MetaPathFinder):
@@ -135,3 +138,33 @@ def test_wrappers_validate_before_dispatch(bad):
             pa.paged_attention(a["q"], a["k_pages"], a["v_pages"],
                                a["tables"], a["lens"])
     assert pa.launches == before
+
+
+def _flash_args(dtype=torch.float32, B=2, S=5, H=4, KV=2, Dk=16, Dv=16):
+    return dict(q=torch.zeros(B, S, H, Dk, dtype=dtype),
+                k=torch.zeros(B, S, KV, Dk, dtype=dtype),
+                v=torch.zeros(B, S, KV, Dv, dtype=dtype))
+
+
+FLASH_BAD = {
+    "float16": dict(q=torch.zeros(2, 5, 4, 16, dtype=torch.float16)),
+    "k dtype != q": dict(k=torch.zeros(2, 5, 2, 16, dtype=torch.bfloat16)),
+    "KV does not divide H": dict(q=torch.zeros(2, 5, 3, 16)),
+    "unsupported head dim": _flash_args(Dk=80, Dv=80),
+    "unsupported Dk/Dv pair": _flash_args(Dk=16, Dv=64),
+    "non-contiguous q": dict(q=torch.zeros(2, 4, 5, 16).transpose(1, 2)),
+    "non-contiguous v": dict(v=torch.zeros(2, 5, 16, 2).transpose(2, 3)),
+    "k length": dict(k=torch.zeros(2, 6, 2, 16)),
+    "3-d q": dict(q=torch.zeros(2, 5, 64)),
+}
+
+
+@pytest.mark.parametrize("bad", sorted(FLASH_BAD))
+def test_flash_wrapper_validates_before_dispatch(bad):
+    from repro_torch.kernels import flash_attention as fa
+    a = _flash_args()
+    a.update(FLASH_BAD[bad])
+    before = dict(fa.launches)
+    with pytest.raises(ValueError):
+        fa.flash_attention(a["q"], a["k"], a["v"])
+    assert fa.launches == before
