@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 From the root of a checkout: builds the CUDA kernels from
-``src/repro_torch/csrc``, holds each against its plain PyTorch version
+``src/repro_torch/csrc`` (printing the bf16 flash kernel's registers,
+spills and shared memory), holds each against its plain PyTorch version
 (the verify kernel also bitwise against chained decode-kernel launches),
 serves full-width tinyllama-1.1b (random bf16 weights from a seed) through
 ``ServeEngine`` under the gmg scheduler (fused and unfused attention,
@@ -17,11 +18,13 @@ and drafts replayed from the plain run, which are accepted) with token
 streams equal to plain decoding, and times the kernels with CUDA events.
 Then the full-sequence forward: the flash-attention kernel against its
 plain version (the reference's sweep, ragged S, GQA groups of 3, MLA head
-dims), full-width tinyllama-1.1b and minicpm3-4b in f32 (``decode_step``
-after ``prefill`` equal to ``logits``, one flash launch per layer per
-forward, and for tinyllama the paged path's logits equal too), the bf16
-serving dtype through ``make_prefill_step`` / ``make_serve_step`` (8
-greedy tokens, a profiled prefill forward), and the flash kernel's times.
+dims, every head-dim pair of the bf16 tensor-core body) and its causal
+mask (K/V changed past a row leave it bitwise equal), full-width
+tinyllama-1.1b and minicpm3-4b in f32 (``decode_step`` after ``prefill``
+equal to ``logits``, one flash launch per layer per forward, and for
+tinyllama the paged path's logits equal too), the bf16 serving dtype
+through ``make_prefill_step`` / ``make_serve_step`` (8 greedy tokens, a
+profiled prefill forward), and the flash kernel's times.
 Prints the card, the checks, one JSON line of kernel records and,
 last, one JSON line naming the device.  Exits non-zero, with no result
 lines, on any failed check, when CUDA is unavailable, or outside a checkout.
@@ -34,6 +37,7 @@ import dataclasses
 import hashlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -67,7 +71,17 @@ FLASH_SWEEP = [(B, S, H, KV, D, D, dt, True)          # the reference sweep
     (1, 300, 24, 8, 128, 128, "float32", True),       # G = 3 at D = 128
     (1, 300, 24, 8, 128, 128, "bfloat16", True),
     (2, 256, 40, 40, 96, 64, "float32", True),        # MHA, Dk 96, Dv 64
-    (2, 256, 40, 40, 96, 64, "bfloat16", True)]
+    (2, 256, 40, 40, 96, 64, "bfloat16", True),
+    # the bf16 body at the other head-dim pairs it is built for (head dims
+    # padded to 64-wide panels), ragged S, S = 1 and non-causal
+    (2, 77, 8, 2, 16, 16, "bfloat16", True),          # reduced GQA dims
+    (2, 33, 4, 4, 24, 16, "bfloat16", False),         # reduced MLA dims
+    (3, 1, 8, 2, 64, 128, "bfloat16", True),          # S = 1
+    (1, 200, 8, 1, 64, 128, "bfloat16", False),
+    (1, 130, 24, 8, 96, 128, "bfloat16", True),
+    (1, 1, 6, 2, 96, 128, "bfloat16", False),
+    (2, 300, 24, 8, 128, 64, "bfloat16", False),
+    (1, 1000, 16, 2, 16, 16, "bfloat16", False)]
 # the main path's calls: each model's bf16 prefill and f32 check
 FLASH_MAIN = [(4, 1024, 32, 4, 64, 64, "bfloat16", True),
               (2, 1024, 40, 40, 96, 64, "bfloat16", True),
@@ -680,6 +694,30 @@ def flash_inputs(torch, B, S, H, KV, Dk, Dv, dtype, seed):
     return rnd(B, S, H, Dk), rnd(B, S, KV, Dk), rnd(B, S, KV, Dv)
 
 
+def ptxas_report(log, fa) -> None:
+    """Registers and spills of each bf16 flash kernel instance, from the
+    build's ``-Xptxas -v`` report, beside its dynamic shared memory.  An
+    instance holds QP panels of 64 Dk columns and VP of 64 Dv columns."""
+    entry = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '.*?flash_wgmma_kernel"
+                      r"ILi(\d)ELi(\d)E", line)
+        if "Compiling entry function" in line:
+            entry = m and (int(m.group(1)), int(m.group(2)))
+            spills = ""
+        elif entry and "spill" in line:
+            spills = line.strip()
+        elif entry and "registers" in line:
+            qp, vp = entry
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            print(f"  flash_wgmma_kernel<{qp}, {vp}> (Dk <= {64 * qp}, Dv <= "
+                  f"{64 * vp}): {regs} registers, {spills}, dynamic shared "
+                  f"memory {fa.smem_bytes(64 * qp, 64 * vp)} B, 128 threads")
+            entry = None
+    check(log == "" or "flash_wgmma_kernel" in log,
+          "no bf16 flash kernel in the build's ptxas report")
+
+
 def check_flash(torch, fa) -> float:
     """The flash kernel against its plain version at every case of
     ``FLASH_SWEEP`` and ``FLASH_MAIN``, within the reference's tolerances
@@ -703,6 +741,37 @@ def check_flash(torch, fa) -> float:
         if case in FLASH_MAIN:
             worst = max(worst, err)
     return worst
+
+
+def check_flash_mask(torch, fa) -> None:
+    """Causality of the bf16 kernel on the card, at both prefill shapes
+    (one sequence): K/V changed at positions past i leave rows 0..i
+    bitwise equal; changed at i too, rows before i stay equal and row i
+    changes in every head.  i inside a 64-key tile, on its last key and on
+    the first key of the next."""
+    for seed, (B, S, H, KV, Dk, Dv, _, _) in enumerate(FLASH_MAIN[:2]):
+        q, k, v = flash_inputs(torch, 1, S, H, KV, Dk, Dv, "bfloat16",
+                               800 + seed)
+        _, k_new, v_new = flash_inputs(torch, 1, S, H, KV, Dk, Dv,
+                                       "bfloat16", 900 + seed)
+        out = fa.flash_attention(q, k, v)
+        for i in (100, 127, 128, S - 2):
+            k2, v2 = k_new.clone(), v_new.clone()
+            k2[:, :i + 1], v2[:, :i + 1] = k[:, :i + 1], v[:, :i + 1]
+            later = fa.flash_attention(q, k2, v2)
+            k2[:, i] += 1
+            v2[:, i] += 1
+            at_i = fa.flash_attention(q, k2, v2)
+            torch.cuda.synchronize()
+            kept = torch.equal(later[:, :i + 1], out[:, :i + 1])
+            kept_i = torch.equal(at_i[:, :i], out[:, :i])
+            moved = bool((at_i[:, i] != out[:, i]).any(dim=-1).all())
+            print(f"  bf16 causal S={S} H={H} KV={KV} Dk={Dk} Dv={Dv}, "
+                  f"i={i}: rows 0..i equal after K/V past i changed: "
+                  f"{kept}; rows before i equal and row i changed in every "
+                  f"head after K/V at i changed: {kept_i and moved}")
+            check(kept and kept_i and moved, f"flash_attention causal mask "
+                  f"at i={i}, Dk={Dk}")
 
 
 def fullseq(torch, fa, arch) -> int:
@@ -821,13 +890,16 @@ def fullseq(torch, fa, arch) -> int:
 
     wall_ms, busy_ms, n, top = profiled(
         torch, lambda: prefill_step(params, {"tokens": stoks}), reps=5)
-    flash_ms = sum(ms for ms, _, key in top if "flash_kernel" in key)
+    flash = [(ms, key) for ms, _, key in top if "flash_wgmma_kernel" in key]
+    flash_ms = sum(ms for ms, _ in flash)
     check(busy_ms > 0 and flash_ms > 0,
-          f"{arch}: the profiler saw no device time of the flash kernel")
+          f"{arch}: the profiler saw no device time of the bf16 flash "
+          "kernel (flash_wgmma_kernel)")
     print(f"  {arch} bf16 prefill forward B={Bs} S={Ss}: wall "
           f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms (idle share "
           f"{1 - busy_ms / wall_ms:.3f}), {n:.0f} kernels, flash kernel "
-          f"{flash_ms:.3f} ms ({flash_ms / busy_ms:.3f} of busy)")
+          f"{flash_ms:.3f} ms ({flash_ms / busy_ms:.3f} of busy) as "
+          + ", ".join(key[:100] for _, key in flash))
     for ms, count, key in top[:8]:
         print(f"    {ms:.4f} ms x{count} {key[:90]}")
     del params, model
@@ -838,10 +910,12 @@ def fullseq(torch, fa, arch) -> int:
 def flash_times(torch, fa, flush) -> dict:
     """The flash kernel at the two prefill shapes (bf16, causal): kernel,
     plain version and one SDPA call on (B, H, S, D) with K/V expanded to H
-    heads beforehand, medians of CUDA events with the L2 flushed; the bound
-    counts q·k on bf16 operands at 989 TFLOP/s plus p·v on f32
-    probabilities at 67 TFLOP/s against the bytes at 3.35 TB/s.  Returns
-    {arch: (ms, plain_ms, library_ms, bound_ms, bound_by)}."""
+    heads beforehand, medians of CUDA events with the L2 flushed.  The
+    bound is that of what the bf16 kernel computes: q·k and p·v (p rounded
+    to bf16) both at the tensor cores' 989 TFLOP/s against the bytes at
+    3.35 TB/s; the bound with p·v on f32 probabilities at the 67 TFLOP/s
+    of the CUDA cores (what the f32 body computes) is printed beside it.
+    Returns {arch: (ms, plain_ms, library_ms, bound_ms, bound_by)}."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = {}
     shapes = {"tinyllama-1.1b": (4, 1024, 32, 4, 64, 64),
@@ -862,18 +936,18 @@ def flash_times(torch, fa, flush) -> dict:
         qk, pv = 2 * B * H * Dk * pairs, 2 * B * H * Dv * pairs
         nbytes = 2 * B * S * (H * Dk + KV * Dk + KV * Dv + H * Dv)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = (qk / BF16_FLOPS + pv / F32_FLOPS) * 1e3
-        t_tc = (qk + pv) / BF16_FLOPS * 1e3
+        t_ops = (qk + pv) / BF16_FLOPS * 1e3
+        t_f32p = (qk / BF16_FLOPS + pv / F32_FLOPS) * 1e3
         bound_ms = max(t_bytes, t_ops)
         by = "bytes" if t_bytes >= t_ops else "operations"
         print(f"  {arch} B={B} S={S} H={H} KV={KV} Dk={Dk} Dv={Dv}: kernel "
               f"{ms:.4f} ms, bound {bound_ms:.5f} ms by {by} (q.k "
-              f"{qk / 1e9:.3f} GFLOP at 989 bf16 TFLOP/s + p.v "
-              f"{pv / 1e9:.3f} GFLOP at 67 f32 TFLOP/s = {t_ops:.5f} ms; "
-              f"{nbytes} B / 3.35 TB/s = {t_bytes:.5f} ms; both products "
-              f"on the tensor cores, p in bf16 as SDPA rounds it: "
-              f"{t_tc:.5f} ms), plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} "
-              f"ms")
+              f"{qk / 1e9:.3f} + p.v {pv / 1e9:.3f} GFLOP at 989 bf16 "
+              f"TFLOP/s = {t_ops:.5f} ms; {nbytes} B / 3.35 TB/s = "
+              f"{t_bytes:.5f} ms; with p.v on f32 probabilities at 67 f32 "
+              f"TFLOP/s the bound would be {max(t_bytes, t_f32p):.5f} ms), "
+              f"{bound_ms / ms:.3f} of the bound, plain {plain_ms:.4f} ms, "
+              f"SDPA {lib_ms:.4f} ms")
         rows[arch] = (ms, plain_ms, lib_ms, bound_ms, by)
     return rows
 
@@ -909,6 +983,7 @@ def main() -> int:
     build.build(libs)
     print(f"build: {time.perf_counter() - t0:.2f} s ("
           + ", ".join(build.library_path(n).name for n in libs) + ")")
+    ptxas_report(build.build_log("flash_attention"), fa)
 
     # 3. kernels against their plain versions
     print("kernels vs plain versions:")
@@ -1129,6 +1204,7 @@ def main() -> int:
     # version, then each model in f32 and on its bf16 main path
     print("flash_attention vs its plain version:")
     flash_err = check_flash(torch, fa)
+    check_flash_mask(torch, fa)
     print("full-sequence forward, full width (random weights from seed 0):")
     flash_launches = sum(fullseq(torch, fa, arch) for arch in FULLSEQ)
     print("flash_attention times (bf16, causal, L2 flushed; median of CUDA "

@@ -5,7 +5,9 @@ Each source becomes a shared library with a plain C interface, compiled by
 at the repository root.  A library's file name carries a hash of its source
 and flags, so an edited source is rebuilt and an unchanged one is reused.
 Nothing is built or loaded at import time: callers ask for a library when
-they are about to launch one of its kernels.
+they are about to launch one of its kernels.  ``ptxas`` reports each
+kernel's registers, shared memory and spills (``-Xptxas -v``); the report
+is kept beside the library (``build_log``).
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from typing import Dict, Sequence
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -65,11 +67,19 @@ def build(names: Sequence[str]) -> None:
     for name, out, tmp, proc in procs:
         log, _ = proc.communicate()
         if proc.returncode == 0:
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)
         else:
             failed.append(f"{name}.cu (exit {proc.returncode}):\n{log}")
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
+
+
+def build_log(name: str) -> str:
+    """The compiler's output (with the ``ptxas`` report) of the build of
+    ``csrc/<name>.cu``, or "" if it has not been built here."""
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def load(name: str) -> ctypes.CDLL:

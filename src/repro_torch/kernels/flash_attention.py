@@ -4,7 +4,9 @@ plain version.
 q (B, S, H, Dk), k (B, S, KV, Dk), v (B, S, KV, Dv) with KV dividing H
 (query head h reads kv-head h // (H // KV)); the result is (B, S, H, Dv) in
 q's dtype, causal (query i sees keys 0..i) or not.  Dv may differ from Dk,
-as MLA's prefill needs.  Scores, softmax and the p·v sums run in f32.
+as MLA's prefill needs.  Scores, softmax and the p·v sums run in f32; on
+the card the bf16 kernel multiplies probabilities rounded to bf16 in p·v
+(on the tensor cores, as SDPA does), the f32 kernel f32 ones.
 
 ``flash_attention`` (kernel: ``csrc/flash_attention.cu``) checks its
 arguments, then takes the plain version ``flash_attention_ref`` for
@@ -47,8 +49,16 @@ def _kernels() -> ctypes.CDLL:
         lib.flash_attention_launch.argtypes = (
             [p] * 4 + [i] * 8 + [ctypes.c_float, p])
         lib.flash_attention_launch.restype = i
+        lib.flash_attention_smem_bytes.argtypes = [i, i]
+        lib.flash_attention_smem_bytes.restype = i
         _lib = lib
     return _lib
+
+
+def smem_bytes(Dk: int, Dv: int) -> int:
+    """The bf16 kernel's dynamic shared memory per block at (Dk, Dv); loads
+    (and at first use builds) the kernel's library."""
+    return _kernels().flash_attention_smem_bytes(Dk, Dv)
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, scale=None):
@@ -101,6 +111,23 @@ def _check(q, k, v) -> None:
         for name, t in named.items():
             if t.data_ptr() % 16:
                 raise ValueError(f"{name} must be 16-byte aligned")
+        if q.dtype == torch.bfloat16:
+            _check_tma(q, k, v)
+
+
+def _check_tma(q, k, v) -> None:
+    """What the bf16 kernel's tensor maps (dims (D, heads, S, B), boxes
+    of {64, 1, 64, 1}) need: every byte stride a multiple of 16 and below
+    2^40, every dim below 2^32, the head dims within two 64-wide panels."""
+    for name, t in dict(q=q, k=k, v=v).items():
+        B, S, heads, D = t.shape
+        strides = (2 * D, 2 * heads * D, 2 * S * heads * D)
+        if any(s % 16 or s >= 2 ** 40 for s in strides):
+            raise ValueError(f"{name}: byte strides {strides} of its tensor "
+                             "map must be multiples of 16 below 2^40")
+        if max(t.shape) >= 2 ** 32 or D > 128:
+            raise ValueError(f"{name}: shape {tuple(t.shape)} does not fit "
+                             "a tensor map of 64-wide boxes")
 
 
 def flash_attention(q, k, v, *, causal: bool = True, scale=None):

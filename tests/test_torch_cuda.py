@@ -1,9 +1,9 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
 version (the verify kernel also bitwise against chained decode-kernel
 launches), the reduced model's token streams equal across attention
-modes, decode horizons and speculation, and the reduced full-sequence
-forward on the card equal to the CPU's.  Marked ``cuda``; skips without a
-GPU.  Run on the GPU machine with
+modes, decode horizons and speculation, the flash kernel's causal mask,
+and the reduced full-sequence forward on the card equal to the CPU's.
+Marked ``cuda``; skips without a GPU.  Run on the GPU machine with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -216,6 +216,16 @@ def test_reduced_model_streams_equal_across_modes(cuda):
                    drafter=replay(hot)) == hot
 
 
+# the bf16 (tensor-core) body at every head-dim pair it is built for, GQA
+# groups of 1, 3 and 8, S of one key, a ragged tile and a long ragged run
+_HEAD_DIMS = [(64, 64), (96, 64), (128, 128), (64, 128), (96, 128),
+              (128, 64), (16, 16), (24, 16)]
+_BF16_SWEEP = [(torch.bfloat16, causal, 1 if S > 100 else 2, S, 2 * G, 2, Dk,
+                Dv)
+               for Dk, Dv in _HEAD_DIMS for G in (1, 3, 8)
+               for S in (1, 77, 1000) for causal in (True, False)]
+
+
 @pytest.mark.parametrize("dtype,causal,B,S,H,KV,Dk,Dv", [
     (torch.float32, True, 2, 128, 4, 4, 64, 64),     # the reference sweep
     (torch.bfloat16, True, 1, 256, 8, 2, 64, 64),
@@ -228,7 +238,7 @@ def test_reduced_model_streams_equal_across_modes(cuda):
     (torch.bfloat16, True, 2, 200, 40, 40, 96, 64),  # MLA head dims
     (torch.float32, True, 2, 33, 4, 4, 24, 16),      # reduced MLA dims
     (torch.float32, True, 3, 1, 4, 2, 64, 64),       # S = 1
-])
+] + _BF16_SWEEP)
 def test_flash_kernel_matches_plain_version(cuda, dtype, causal, B, S, H,
                                             KV, Dk, Dv):
     """The reference's tolerances (``tests/test_kernels.py``): 3e-5 in f32,
@@ -249,6 +259,36 @@ def test_flash_kernel_matches_plain_version(cuda, dtype, causal, B, S, H,
     assert out.shape == (B, S, H, Dv) and out.dtype == dtype
     atol = 3e-5 if dtype == torch.float32 else 2.5e-2
     assert (out.float() - ref.float()).abs().max().item() <= atol
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("Dk,Dv", [(64, 64), (96, 64)])
+@pytest.mark.parametrize("i", [100, 127, 128])
+def test_flash_kernel_causal_mask(cuda, dtype, Dk, Dv, i):
+    """Causality on the card: K/V changed at positions past i leave rows
+    0..i bitwise equal; changed at i, they leave rows before i equal and
+    change row i.  i sits inside a 64-key tile, on its last key and on the
+    first key of the next."""
+    from repro_torch.kernels import flash_attention as fa
+    B, S, H, KV = 2, 200, 8, 2
+    g = torch.Generator(device=cuda).manual_seed(i + Dk)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=cuda).to(dtype)
+
+    q, k, v = rnd(B, S, H, Dk), rnd(B, S, KV, Dk), rnd(B, S, KV, Dv)
+    out = fa.flash_attention(q, k, v)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, i + 1:], v2[:, i + 1:] = rnd(B, S - i - 1, KV, Dk), \
+        rnd(B, S - i - 1, KV, Dv)
+    later = fa.flash_attention(q, k2, v2)
+    k2[:, i], v2[:, i] = rnd(B, KV, Dk), rnd(B, KV, Dv)
+    at_i = fa.flash_attention(q, k2, v2)
+    torch.cuda.synchronize()
+    assert torch.equal(later[:, :i + 1], out[:, :i + 1])
+    assert not torch.equal(later[:, i + 1:], out[:, i + 1:])
+    assert torch.equal(at_i[:, :i], out[:, :i])
+    assert (at_i[:, i] != out[:, i]).any(dim=-1).all()
 
 
 @pytest.mark.parametrize("arch", ["tinyllama-1.1b", "minicpm3-4b"])

@@ -96,3 +96,21 @@ def test_plain_version_masks_the_future():
     out2 = fa.flash_attention(q, k2, v2)
     assert torch.equal(out[:, :20], out2[:, :20])
     assert not torch.equal(out[:, 20:], out2[:, 20:])
+
+
+@pytest.mark.parametrize("Dk,Dv", sorted(fa.HEAD_DIMS))
+def test_tensor_map_check_takes_every_head_dim_pair(Dk, Dv):
+    """The bf16 kernel's tensor-map limits (``_check_tma``, which the
+    wrapper applies to bf16 CUDA calls) admit every pair it is built for."""
+    q = torch.zeros(2, 77, 6, Dk, dtype=torch.bfloat16)
+    k = torch.zeros(2, 77, 2, Dk, dtype=torch.bfloat16)
+    fa._check_tma(q, k, torch.zeros(2, 77, 2, Dv, dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("D", [4, 12, 192])
+def test_tensor_map_check_rejects_what_a_tensor_map_cannot_take(D):
+    """Byte strides that are not multiples of 16 (D of 4 or 12) and head
+    dims past two 64-wide panels raise ``ValueError``."""
+    t = torch.zeros(1, 8, 2, D, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        fa._check_tma(t, t, t)

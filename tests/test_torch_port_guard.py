@@ -91,6 +91,14 @@ def test_chip_smoke_imports_no_jax():
     assert not roots & {"jax", "jaxlib", "repro"}
 
 
+def test_flash_first_call_imports_no_jax():
+    """Like ``chip_smoke.py``, it runs on the GPU machine, which has no
+    JAX."""
+    roots = _imported_roots(ROOT / "scripts" / "flash_first_call.py")
+    assert {"repro_torch", "chip_smoke"} <= roots
+    assert not roots & {"jax", "jaxlib", "repro"}
+
+
 def test_backend_defaults_to_the_gpu():
     if torch.cuda.is_available():
         pytest.skip("CUDA is available: the default device is valid here")
