@@ -4,15 +4,19 @@
     python3 chip_smoke.py
 
 From the root of a checkout: builds the CUDA kernels from
-``src/repro_torch/csrc`` (printing the bf16 flash kernel's registers,
-spills and shared memory), holds each against its plain PyTorch version
-(the verify kernel also bitwise against chained decode-kernel launches),
+``src/repro_torch/csrc`` (printing the registers, spills and shared
+memory of the bf16 flash kernel and of the verify kernel), holds each
+against its plain PyTorch version (the verify kernel also bitwise against
+chained decode-kernel launches, at windows across tile edges, W = 1,
+width 0 on live tables, MQA with a lane's rows split over blocks, and the
+64-lane serving call),
 serves full-width tinyllama-1.1b (random bf16 weights from a seed) through
 ``ServeEngine`` under the gmg scheduler (fused and unfused attention,
 one and four decode steps per call, equal token streams required),
 probes whether results depend on batch grouping or prefill chunking,
-holds full-width verify logits bitwise against decode logits, profiles one
-decode forward, a verify forward and the temperature > 0 sampler, serves
+holds full-width verify logits bitwise against decode logits, profiles
+decode and verify forwards at contexts 48 and 240 and the temperature > 0
+sampler, serves
 speculative decoding (vllm and gmg, temperature 0 and 0.8; n-gram drafts
 and drafts replayed from the plain run, which are accepted) with token
 streams equal to plain decoding, and times the kernels with CUDA events.
@@ -310,12 +314,22 @@ VERIFY_MAIN = [  # (B, W, row-0 contexts, widths): bf16, H=32 KV=4 D=64
     (1, 2, [511], [2]), (1, 5, [508], [5]), (1, 9, [504], [9]),
     (8, 2, [1, 15, 16, 17, 100, 256, 500, 510], [2, 1, 2, 2, 1, 2, 2, 2]),
     (8, 5, [1, 12, 16, 17, 100, 256, 500, 508], [5, 1, 3, 5, 2, 5, 4, 5]),
-    (8, 9, [1, 8, 16, 17, 100, 250, 497, 504], [9, 1, 9, 5, 9, 2, 7, 9])]
-VERIFY_SWEEP = [  # (B, W, H, KV, D, page, contexts, widths): f32
-    (3, 3, 6, 3, 64, 16, [1, 40, 200], [3, 1, 2]),      # GQA, heads not 2^k
-    (2, 4, 8, 1, 128, 16, [77, 300], [4, 3]),           # MQA, D=128
-    (2, 5, 16, 4, 16, 8, [5, 60], [5, 2]),              # D=16, page 8
-    (2, 2, 8, 2, 128, 16, [127, 128], [2, 2])]          # D=128, page edge
+    (8, 9, [1, 8, 16, 17, 100, 250, 497, 504], [9, 1, 9, 5, 9, 2, 7, 9]),
+    # windows across a 64-token tile edge: rows at ctx 62-66 and 125-133
+    (2, 5, [62, 60], [5, 5]), (2, 9, [125, 120], [9, 9]),
+    (4, 1, [1, 64, 65, 300], [1, 1, 1, 1]),                     # W = 1
+    (4, 5, [20, 64, 100, 200], [0, 5, 0, 3])]   # width 0 on live tables
+VERIFY_SWEEP = [  # (B, W, H, KV, D, page, contexts, widths, dtype)
+    (3, 3, 6, 3, 64, 16, [1, 40, 200], [3, 1, 2], "float32"),  # G = 2
+    (2, 4, 8, 1, 128, 16, [77, 300], [4, 3], "float32"),  # MQA, D=128
+    (2, 5, 16, 4, 16, 8, [5, 60], [5, 2], "float32"),     # D=16, page 8
+    (2, 2, 8, 2, 128, 16, [127, 128], [2, 2], "float32"),  # page edge
+    # MQA at W = 9: 288 tasks per lane, split over 9 blocks of 32
+    (2, 9, 32, 1, 128, 16, [120, 250], [9, 7], "float32"),
+    (2, 9, 32, 1, 128, 16, [60, 250], [9, 6], "bfloat16"),
+    (2, 9, 8, 8, 64, 16, [60, 100], [9, 4], "bfloat16"),  # G = 1
+    # rows of 24 bytes, not whole 16-byte units: the plain-copy body
+    (2, 3, 4, 2, 12, 8, [30, 70], [3, 2], "bfloat16")]
 
 
 def check_verify_all(torch, pa) -> float:
@@ -328,20 +342,27 @@ def check_verify_all(torch, pa) -> float:
         worst = max(worst, check_verify(
             torch, pa, c, 2e-2, f"bf16 B={B} W={W} H=32 KV=4 D=64 "
             f"ctx<={max(ctxs) + W - 1} widths {widths}"))
-    # the serving path's verify call: 64 lanes, 8 drafted lanes at
+    # the serving path's verify calls: 64 lanes, 8 drafted lanes at
     # contexts across page edges up to 52, 56 padding lanes at width 0
-    c = verify_case(torch, 8, 5, 32, 4, 64, 16, [1, 15, 16, 17, 32, 33, 48,
-                                                  52], [5, 2, 5, 1, 4, 5, 3,
-                                                        5],
-                    torch.bfloat16, seed=400, lanes=64)
-    worst = max(worst, check_verify(
-        torch, pa, c, 2e-2, "bf16 64 lanes (8 live, ctx<=56) W=5 H=32 KV=4 "
-        "D=64"))
-    for i, (B, W, H, KV, D, page, ctxs, widths) in enumerate(VERIFY_SWEEP):
-        c = verify_case(torch, B, W, H, KV, D, page, ctxs, widths,
-                        torch.float32, seed=500 + i)
-        check_verify(torch, pa, c, 1e-5, f"f32 B={B} W={W} H={H} KV={KV} "
-                     f"D={D} page={page}")
+    for W, widths in ((5, [5, 2, 5, 1, 4, 5, 3, 5]),
+                      (9, [9, 2, 9, 1, 4, 9, 3, 9])):
+        c = verify_case(torch, 8, W, 32, 4, 64, 16,
+                        [1, 15, 16, 17, 32, 33, 48, 52], widths,
+                        torch.bfloat16, seed=400 + W - 5, lanes=64)
+        worst = max(worst, check_verify(
+            torch, pa, c, 2e-2, f"bf16 64 lanes (8 live, ctx<={51 + W}) "
+            f"W={W} H=32 KV=4 D=64"))
+    for i, (B, W, H, KV, D, page, ctxs, widths, dt) in enumerate(
+            VERIFY_SWEEP):
+        dtype = getattr(torch, dt)
+        c = verify_case(torch, B, W, H, KV, D, page, ctxs, widths, dtype,
+                        seed=500 + i)
+        per, blocks, _ = pa.verify_blocking(W, H // KV, D,
+                                            dtype.itemsize)
+        check_verify(torch, pa, c, 1e-5 if dt == "float32" else 2e-2,
+                     f"{dt} B={B} W={W} H={H} KV={KV} D={D} page={page} "
+                     f"({blocks} blocks of {per} tasks per lane and "
+                     "kv-head)")
     return worst
 
 
@@ -651,37 +672,47 @@ def decode_breakdown(torch, be) -> None:
     shape, 64 lanes with 8 live at context 48: a decode forward, and a
     verify forward with a window of 5 rows on each live lane, its 40 live
     rows packed into one 64-row slab (the backend's layout) and, for
-    comparison, as 5 slabs of every lane's row s."""
+    comparison, as 5 slabs of every lane's row s.  Then a decode forward
+    and a packed verify forward at context 240 (the window's last row at
+    244, under the backend's ``max_len`` 256), where the verify kernel's
+    share of a verify forward is largest."""
     from repro_torch.models.model import verify_slabs
 
-    B, live, ctx, W = 64, 8, 48, 5
+    B, live, W = 64, 8, 5
     tok = torch.zeros((B, W), dtype=torch.int32, device="cuda")
-    pos = torch.zeros(B, dtype=torch.int32, device="cuda")
-    pos[:live] = ctx - 1
     wid = torch.zeros(B, dtype=torch.int32, device="cuda")
     wid[:live] = W
-    tabs = torch.full((B, be.n_max), be.scrap, dtype=torch.int32,
-                      device="cuda")
-    per = -(-(ctx + W) // be.page)
-    tabs[:live, :per] = torch.arange(live * per, dtype=torch.int32,
-                                     device="cuda").reshape(live, -1)
     tok1 = tok[:, :1].contiguous()
     slabs = torch.from_numpy(verify_slabs(wid.cpu().numpy(), W, B)).cuda()
-    calls = {
-        "decode forward": lambda: be.model.decode_paged(
-            be.params, be.pages, tok1, pos, tabs, fused=True),
-        f"verify forward (W={W}, packed)": lambda: be.model.verify_paged(
-            be.params, be.pages, tok, pos, wid, tabs, slabs),
-        f"verify forward (W={W}, per-row slabs)":
-            lambda: be.model.verify_paged(be.params, be.pages, tok, pos, wid,
-                                          tabs)}
-    for name, fn in calls.items():
-        wall_ms, busy_ms, n, top = profiled(torch, fn)
-        print(f"  {name}, {B} lanes ({live} live at ctx {ctx}): wall "
-              f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms (idle share "
-              f"{1 - busy_ms / wall_ms:.3f}), {n:.0f} kernels")
-        for ms, count, key in top[:8]:
-            print(f"    {ms:.4f} ms x{count} {key[:90]}")
+    for ctx in (48, 240):
+        pos = torch.zeros(B, dtype=torch.int32, device="cuda")
+        pos[:live] = ctx - 1
+        tabs = torch.full((B, be.n_max), be.scrap, dtype=torch.int32,
+                          device="cuda")
+        per = -(-(ctx + W) // be.page)
+        tabs[:live, :per] = torch.arange(live * per, dtype=torch.int32,
+                                         device="cuda").reshape(live, -1)
+        calls = {
+            "decode forward": lambda: be.model.decode_paged(
+                be.params, be.pages, tok1, pos, tabs, fused=True),
+            f"verify forward (W={W}, packed)": lambda: be.model.verify_paged(
+                be.params, be.pages, tok, pos, wid, tabs, slabs)}
+        if ctx == 48:
+            calls[f"verify forward (W={W}, per-row slabs)"] = (
+                lambda: be.model.verify_paged(be.params, be.pages, tok, pos,
+                                              wid, tabs))
+        for name, fn in calls.items():
+            wall_ms, busy_ms, n, top = profiled(torch, fn)
+            attn = sum(ms for ms, _, key in top
+                       if "fused_verify_kernel" in key
+                       or "fused_decode_kernel" in key)
+            print(f"  {name}, {B} lanes ({live} live at ctx {ctx}): wall "
+                  f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms (idle "
+                  f"share {1 - busy_ms / wall_ms:.3f}), {n:.0f} kernels, "
+                  f"attention kernel {attn:.4f} ms ({attn / busy_ms:.3f} of "
+                  "busy)")
+            for ms, count, key in top[:8]:
+                print(f"    {ms:.4f} ms x{count} {key[:90]}")
 
 
 def flash_inputs(torch, B, S, H, KV, Dk, Dv, dtype, seed):
@@ -694,28 +725,60 @@ def flash_inputs(torch, B, S, H, KV, Dk, Dv, dtype, seed):
     return rnd(B, S, H, Dk), rnd(B, S, KV, Dk), rnd(B, S, KV, Dv)
 
 
-def ptxas_report(log, fa) -> None:
-    """Registers and spills of each bf16 flash kernel instance, from the
-    build's ``-Xptxas -v`` report, beside its dynamic shared memory.  An
-    instance holds QP panels of 64 Dk columns and VP of 64 Dv columns."""
-    entry = None
+def ptxas_entries(log, pattern):
+    """(match of ``pattern`` in the mangled name, registers, spill line) of
+    each kernel instance in a build's ``-Xptxas -v`` report whose name
+    matches."""
+    entry, found = None, []
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '.*?flash_wgmma_kernel"
-                      r"ILi(\d)ELi(\d)E", line)
         if "Compiling entry function" in line:
-            entry = m and (int(m.group(1)), int(m.group(2)))
+            entry = re.search(pattern, line)
             spills = ""
         elif entry and "spill" in line:
             spills = line.strip()
         elif entry and "registers" in line:
-            qp, vp = entry
             regs = re.search(r"Used (\d+) registers", line).group(1)
-            print(f"  flash_wgmma_kernel<{qp}, {vp}> (Dk <= {64 * qp}, Dv <= "
-                  f"{64 * vp}): {regs} registers, {spills}, dynamic shared "
-                  f"memory {fa.smem_bytes(64 * qp, 64 * vp)} B, 128 threads")
+            found.append((entry, regs, spills))
             entry = None
+    return found
+
+
+def ptxas_report(log, fa) -> None:
+    """Registers and spills of each bf16 flash kernel instance, from the
+    build's ``-Xptxas -v`` report, beside its dynamic shared memory.  An
+    instance holds QP panels of 64 Dk columns and VP of 64 Dv columns."""
+    for m, regs, spills in ptxas_entries(
+            log, r"flash_wgmma_kernelILi(\d)ELi(\d)E"):
+        qp, vp = int(m.group(1)), int(m.group(2))
+        print(f"  flash_wgmma_kernel<{qp}, {vp}> (Dk <= {64 * qp}, Dv <= "
+              f"{64 * vp}): {regs} registers, {spills}, dynamic shared "
+              f"memory {fa.smem_bytes(64 * qp, 64 * vp)} B, 128 threads")
     check(log == "" or "flash_wgmma_kernel" in log,
           "no bf16 flash kernel in the build's ptxas report")
+
+
+def verify_ptxas_report(log, pa) -> None:
+    """Registers and spills of each verify kernel instance (element type;
+    16-byte cp.async copies or plain ones), beside its dynamic shared
+    memory at the serving shape (W=5, G=8, D=64) and at MQA's (W=9, G=32,
+    D=128), where the host's blocking agrees with the kernel's own."""
+    for m, regs, spills in ptxas_entries(
+            log, r"fused_verify_kernelI(13__nv_bfloat16|f)Lb([01])E"):
+        elem = 2 if m.group(1) != "f" else 4
+        smem = []
+        for W, G, D in ((5, 8, 64), (9, 32, 128)):
+            per, blocks, nbytes = pa.verify_blocking(W, G, D, elem)
+            check(nbytes == pa._kernels().fused_verify_smem_bytes(
+                per, D, elem == 2), "verify shared memory: the host and "
+                "the kernel disagree")
+            smem.append(f"{nbytes} B at W={W} G={G} D={D} ({blocks} blocks "
+                        f"of {per} tasks per lane and kv-head)")
+        print(f"  fused_verify_kernel<{'bf16' if elem == 2 else 'f32'}, "
+              f"{'cp.async' if m.group(2) == '1' else 'plain copies'}>: "
+              f"{regs} registers, {spills}, dynamic shared memory "
+              + "; ".join(smem) + ", 256 threads")
+    check(log == "" or "fused_verify_kernel" in log,
+          "no verify kernel in the build's ptxas report")
 
 
 def check_flash(torch, fa) -> float:
@@ -984,6 +1047,7 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s ("
           + ", ".join(build.library_path(n).name for n in libs) + ")")
     ptxas_report(build.build_log("flash_attention"), fa)
+    verify_ptxas_report(build.build_log("paged_attention"), pa)
 
     # 3. kernels against their plain versions
     print("kernels vs plain versions:")

@@ -43,6 +43,13 @@ launches: Dict[str, int] = {"paged_attention": 0, "fused_decode_attention": 0,
 _DTYPES = (torch.float32, torch.bfloat16)
 _lib = None
 
+# the verify kernel's blocks: 8 warps, 64-token tiles in a two-stage ring,
+# at most this much dynamic shared memory (an H100 block's)
+VERIFY_WARPS = 8
+TILE = 64
+STAGES = 2
+MAX_SMEM = 232448
+
 
 def _kernels() -> ctypes.CDLL:
     global _lib
@@ -56,8 +63,10 @@ def _kernels() -> ctypes.CDLL:
             [p] * 8 + [i] * 7 + [ctypes.c_float, p])
         lib.fused_decode_attention_launch.restype = i
         lib.fused_verify_attention_launch.argtypes = (
-            [p] * 9 + [i] * 8 + [ctypes.c_float, p])
+            [p] * 9 + [i] * 8 + [ctypes.c_float, i, p])
         lib.fused_verify_attention_launch.restype = i
+        lib.fused_verify_smem_bytes.argtypes = [i, i, i]
+        lib.fused_verify_smem_bytes.restype = i
         _lib = lib
     return _lib
 
@@ -294,6 +303,44 @@ def fused_decode_attention(q, k_new, v_new, k_pages, v_pages, block_tables,
     return out, k_pages, v_pages
 
 
+def _verify_rows(D: int, elem: int):
+    """Bytes of one staged (K row, V row) of the verify kernel: D elements
+    rounded up to 16 bytes, a K row padded by 16 more where that makes its
+    length an odd number of 16-byte units (``csrc/paged_attention.cu``,
+    ``verify_k_row`` / ``verify_v_row``)."""
+    v = -(-D * elem // 16) * 16
+    return (v if (v // 16) % 2 else v + 16), v
+
+
+def verify_smem_bytes(per: int, D: int, elem: int) -> int:
+    """Dynamic shared memory of a verify block of ``per`` tasks at head dim
+    D and ``elem`` bytes per element: two ring stages of 64 K and V rows,
+    then f32 q and acc rows and (m, l) per task and each warp's 64
+    probabilities (the kernel's ``verify_smem_bytes``)."""
+    kr, vr = _verify_rows(D, elem)
+    return STAGES * TILE * (kr + vr) + 4 * (2 * per * D + 2 * per
+                                            + VERIFY_WARPS * TILE)
+
+
+def verify_blocking(W: int, G: int, D: int, elem: int):
+    """How the verify kernel splits a (lane, kv-head)'s W*G tasks (one
+    window row of one query head each) over blocks: ``per`` tasks per
+    block, enough for a block's 8 warps (G of them a warp each where G
+    exceeds 8) and no more, fewer where shared memory runs out.  Returns
+    (per, blocks per (lane, kv-head), shared memory bytes); raises
+    ValueError where not even one task fits."""
+    tasks = W * G
+    per = min(tasks, VERIFY_WARPS * -(-G // VERIFY_WARPS))
+    while per > 1 and verify_smem_bytes(per, D, elem) > MAX_SMEM:
+        per -= 1
+    smem = verify_smem_bytes(per, D, elem)
+    if smem > MAX_SMEM:
+        raise ValueError(f"fused_verify_attention: head dim {D} needs "
+                         f"{smem} B of shared memory per block, more than "
+                         f"{MAX_SMEM}")
+    return per, -(-tasks // per), smem
+
+
 def fused_verify_attention(q, k_new, v_new, k_pages, v_pages, block_tables,
                            pos0, widths, *, scale=None):
     """Speculative verification in one launch: for each lane b, write the
@@ -316,13 +363,15 @@ def fused_verify_attention(q, k_new, v_new, k_pages, v_pages, block_tables,
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out, k_pages, v_pages
+    B, W, H, D = q.shape
+    per, _, _ = verify_blocking(W, H // k_pages.shape[2], D,
+                                q.element_size())
     with torch.cuda.device(q.device):
         err = _kernels().fused_verify_attention_launch(
             q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
             k_pages.data_ptr(), v_pages.data_ptr(), block_tables.data_ptr(),
-            pos0.data_ptr(), widths.data_ptr(), out.data_ptr(),
-            q.shape[0], q.shape[1], *_geometry(q, k_pages, block_tables,
-                                               scale),
+            pos0.data_ptr(), widths.data_ptr(), out.data_ptr(), B, W,
+            *_geometry(q, k_pages, block_tables, scale), per,
             torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(

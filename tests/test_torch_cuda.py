@@ -95,32 +95,53 @@ def test_kernels_match_plain_versions_beside_padding_lanes(cuda):
     assert torch.equal(k1[:-1], k2[:-1]) and torch.equal(v1[:-1], v2[:-1])
 
 
-@pytest.mark.parametrize("dtype,atol,B,W,H,KV,D,page,ctxs,widths", [
+@pytest.mark.parametrize("dtype,atol,B,W,H,KV,D,page,ctxs,widths,lanes", [
     (torch.bfloat16, 2e-2, 4, 5, 32, 4, 64, 16, [1, 16, 17, 300],
-     [5, 1, 3, 4]),
-    (torch.float32, 1e-5, 3, 3, 6, 3, 64, 16, [1, 40, 200], [3, 2, 1]),
-    (torch.float32, 1e-5, 2, 4, 8, 1, 128, 8, [9, 60], [4, 4]),
+     [5, 1, 3, 4], None),
+    (torch.float32, 1e-5, 3, 3, 6, 3, 64, 16, [1, 40, 200], [3, 2, 1], None),
+    (torch.float32, 1e-5, 2, 4, 8, 1, 128, 8, [9, 60], [4, 4], None),
+    # windows across a 64-token tile edge (rows at ctx 62-66, 125-133)
+    (torch.bfloat16, 2e-2, 2, 5, 32, 4, 64, 16, [62, 60], [5, 5], None),
+    (torch.bfloat16, 2e-2, 2, 9, 32, 4, 64, 16, [125, 120], [9, 9], None),
+    (torch.bfloat16, 2e-2, 4, 1, 32, 4, 64, 16, [1, 64, 65, 300],
+     [1, 1, 1, 1], None),                                    # W = 1
+    (torch.bfloat16, 2e-2, 4, 5, 32, 4, 64, 16, [20, 64, 100, 200],
+     [0, 5, 0, 3], None),                   # width 0 on live tables
+    # MQA at W = 9: a lane's rows split over blocks
+    (torch.float32, 1e-5, 2, 9, 32, 1, 128, 16, [120, 250], [9, 7], None),
+    (torch.bfloat16, 2e-2, 2, 9, 32, 1, 128, 16, [60, 250], [9, 6], None),
+    # rows of 24 bytes: copied without cp.async
+    (torch.bfloat16, 2e-2, 2, 3, 4, 2, 12, 8, [30, 70], [3, 2], None),
+    # the serving call: 8 drafted lanes beside 56 padding lanes at width 0
+    # on the all-scrap table
+    (torch.bfloat16, 2e-2, 8, 5, 32, 4, 64, 16,
+     [1, 15, 16, 17, 32, 33, 48, 52], [5, 2, 5, 1, 4, 5, 3, 5], 64),
 ])
 def test_verify_kernel_matches_plain_and_chained_decode(
-        cuda, dtype, atol, B, W, H, KV, D, page, ctxs, widths):
+        cuda, dtype, atol, B, W, H, KV, D, page, ctxs, widths, lanes):
     """Live rows (s < width) within ``atol`` of the plain version and
     bitwise equal to W chained ``fused_decode_attention`` launches (rows
     past a lane's width on the all-scrap table); pools equal to both off
-    the scrap page.  Row 0 of lane b sits at context ctxs[b]."""
+    the scrap page.  Row 0 of lane b sits at context ctxs[b]; ``lanes``
+    (default B) adds padding lanes at width 0 on the all-scrap table."""
     from repro_torch.kernels import paged_attention as pa
     g = torch.Generator(device=cuda).manual_seed(2)
     n_max = max(-(-(c + W) // page) for c in ctxs)
     P = B * n_max + 1
+    L = lanes or B
 
     def rnd(*shape):
         return torch.randn(shape, generator=g, device=cuda).to(dtype)
 
-    q, kn, vn = rnd(B, W, H, D), rnd(B, W, KV, D), rnd(B, W, KV, D)
+    q, kn, vn = rnd(L, W, H, D), rnd(L, W, KV, D), rnd(L, W, KV, D)
     kp, vp = rnd(P, page, KV, D), rnd(P, page, KV, D)
-    tab = torch.randperm(P - 1, generator=g, device=cuda)
-    tab = tab.reshape(B, n_max).to(torch.int32)
-    pos0 = torch.tensor(ctxs, dtype=torch.int32, device=cuda) - 1
-    wid = torch.tensor(widths, dtype=torch.int32, device=cuda)
+    tab = torch.full((L, n_max), P - 1, dtype=torch.int32, device=cuda)
+    tab[:B] = torch.randperm(P - 1, generator=g, device=cuda).reshape(
+        B, n_max).to(torch.int32)
+    pos0 = torch.zeros(L, dtype=torch.int32, device=cuda)
+    pos0[:B] = torch.tensor(ctxs, dtype=torch.int32, device=cuda) - 1
+    wid = torch.zeros(L, dtype=torch.int32, device=cuda)
+    wid[:B] = torch.tensor(widths, dtype=torch.int32, device=cuda)
     before = pa.launches["fused_verify_attention"]
     k1, v1, k2, v2 = kp.clone(), vp.clone(), kp.clone(), vp.clone()
     k3, v3 = kp.clone(), vp.clone()

@@ -99,6 +99,14 @@ def test_flash_first_call_imports_no_jax():
     assert not roots & {"jax", "jaxlib", "repro"}
 
 
+def test_verify_first_call_imports_no_jax():
+    """The paged kernels' first call on the GPU machine imports no JAX
+    either."""
+    roots = _imported_roots(ROOT / "scripts" / "verify_first_call.py")
+    assert {"repro_torch", "chip_smoke"} <= roots
+    assert not roots & {"jax", "jaxlib", "repro"}
+
+
 def test_backend_defaults_to_the_gpu():
     if torch.cuda.is_available():
         pytest.skip("CUDA is available: the default device is valid here")

@@ -153,16 +153,20 @@ def test_verify_device_equals_jax(temperature):
 # ---------------------------------------------------------------------------
 # verify attention: the plain version against the Pallas kernel
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("B,W,H,KV,D,page,n_max,seed", [
-    (3, 4, 4, 2, 8, 4, 4, 0),       # GQA, windows crossing page edges
-    (2, 3, 4, 1, 16, 8, 2, 1),      # MQA
-    (2, 5, 2, 2, 8, 4, 3, 2),       # MHA, window up to 5
+@pytest.mark.parametrize("B,W,H,KV,D,page,n_max,seed,pos0s", [
+    (3, 4, 4, 2, 8, 4, 4, 0, None),     # GQA, windows crossing page edges
+    (2, 3, 4, 1, 16, 8, 2, 1, None),    # MQA
+    (2, 5, 2, 2, 8, 4, 3, 2, None),     # MHA, window up to 5
+    (3, 1, 4, 2, 8, 4, 3, 3, None),     # W = 1
+    (2, 9, 4, 2, 8, 4, 4, 4, None),     # W = 9, the deepest window
+    (2, 5, 16, 2, 8, 4, 4, 5, [2, 6]),  # G = 8, windows across page edges
 ])
 def test_fused_verify_plain_matches_pallas(B, W, H, KV, D, page, n_max,
-                                           seed):
+                                           seed, pos0s):
     """Live rows' outputs agree at f32 1e-5; pools are equal off the scrap
     page (the Pallas kernel parks its write-backs there, and rows past a
-    lane's width write only there)."""
+    lane's width write only there).  ``pos0s`` fixes row 0's slot per lane
+    (default: drawn so that the window fits the table)."""
     rng = np.random.default_rng(seed)
     P = B * n_max + 1
     f = np.float32
@@ -174,8 +178,12 @@ def test_fused_verify_plain_matches_pallas(B, W, H, KV, D, page, n_max,
     tables = rng.permutation(P - 1).reshape(B, n_max).astype(np.int32)
     widths = rng.integers(1, W + 1, size=B).astype(np.int32)
     widths[0] = W
-    pos0 = np.array([rng.integers(0, n_max * page - w + 1) for w in widths],
-                    np.int32)
+    if pos0s is None:
+        pos0 = np.array([rng.integers(0, n_max * page - w + 1)
+                         for w in widths], np.int32)
+    else:
+        pos0 = np.array(pos0s, np.int32)
+        assert all(p + w <= n_max * page for p, w in zip(pos0, widths))
     args = (q, kn, vn, kp, vp, tables, pos0, widths)
     oj, kj, vj = j_verify(*(jnp.asarray(a) for a in args), interpret=True)
     ot, kt, vt = tpa.fused_verify_attention(*(_t(a) for a in args))
@@ -188,6 +196,36 @@ def test_fused_verify_plain_matches_pallas(B, W, H, KV, D, page, n_max,
     # the CPU wrapper IS the plain version
     ref = tpa.fused_verify_attention_ref(*(_t(a) for a in args))
     assert torch.equal(ref[0], ot)
+
+
+@pytest.mark.parametrize("D", [16, 64, 128])
+@pytest.mark.parametrize("elem", [2, 4])
+def test_verify_blocking_fits_and_covers_every_row(D, elem):
+    """The verify kernel's blocking, for every window the wrapper admits (W
+    up to 9, speculation depth 8) and every group size from MHA to MQA at
+    32 heads: shared memory within a block's limit and as the formula says,
+    and the blocks of a (lane, kv-head) cover each (row, head) task once,
+    none of them empty."""
+    for W in range(1, 10):
+        for G in (1, 2, 3, 4, 6, 8, 16, 32):
+            per, blocks, smem = tpa.verify_blocking(W, G, D, elem)
+            assert smem == tpa.verify_smem_bytes(per, D, elem)
+            assert smem <= tpa.MAX_SMEM
+            tasks = [range(z * per, min((z + 1) * per, W * G))
+                     for z in range(blocks)]
+            assert all(len(t) > 0 for t in tasks)
+            covered = sorted(i for t in tasks for i in t)
+            assert covered == list(range(W * G))
+            assert {i // G for i in covered} == set(range(W))
+    # the serving call: G = 8, so each window row runs in a block of its own
+    assert tpa.verify_blocking(5, 8, 64, 2)[:2] == (8, 5)
+
+
+def test_verify_blocking_refuses_what_does_not_fit():
+    """A head dim whose two ring stages alone exceed a block's shared
+    memory raises instead of launching."""
+    with pytest.raises(ValueError, match="shared memory"):
+        tpa.verify_blocking(5, 8, 512, 4)
 
 
 BAD_VERIFY = {
