@@ -5,11 +5,14 @@
 
 From the root of a checkout: builds the CUDA kernels from
 ``src/repro_torch/csrc`` (printing the registers, spills and shared
-memory of the bf16 flash kernel and of the verify kernel), holds each
-against its plain PyTorch version (the verify kernel also bitwise against
-chained decode-kernel launches, at windows across tile edges, W = 1,
-width 0 on live tables, MQA with a lane's rows split over blocks, and the
-64-lane serving call),
+memory of the bf16 flash kernel and of the paged kernels' body, which is
+also built at the other chunk lengths timed below), holds each against
+its plain PyTorch version (contexts across the paged kernels' chunk
+edges and at the table's capacity, G = 3 and G = 7 at D = 128; the
+attend-only kernel bitwise the fused one; the verify kernel bitwise
+against chained decode-kernel launches, at windows across tile and chunk
+edges, W = 1, width 0 on live tables, MQA with a lane's rows split over
+blocks, and the 64-lane serving call; a lane alone bitwise among 64),
 serves full-width tinyllama-1.1b (random bf16 weights from a seed) through
 ``ServeEngine`` under the gmg scheduler (fused and unfused attention,
 one and four decode steps per call, equal token streams required),
@@ -19,7 +22,8 @@ decode and verify forwards at contexts 48 and 240 and the temperature > 0
 sampler, serves
 speculative decoding (vllm and gmg, temperature 0 and 0.8; n-gram drafts
 and drafts replayed from the plain run, which are accepted) with token
-streams equal to plain decoding, and times the kernels with CUDA events.
+streams equal to plain decoding, and times the kernels with CUDA events
+(the paged kernels also at chunk lengths 64, 128 and 256).
 Then the full-sequence forward: the flash-attention kernel against its
 plain version (the reference's sweep, ragged S, GQA groups of 3, MLA head
 dims, every head-dim pair of the bf16 tensor-core body) and its causal
@@ -94,6 +98,8 @@ FLASH_MAIN = [(4, 1024, 32, 4, 64, 64, "bfloat16", True),
 # the capped mixed workload of the quickstart's real-execution mode
 WORKLOAD = dict(rate=1.5, duration=6.0, seed=0, mix=(2, 1, 1), prompt_cap=40,
                 output_cap=12, slo_scale=20.0)
+# the paged kernels' chunk lengths (tokens a block covers) timed side by side
+CHUNKS = (64, 128, 256)
 # prompt of every third request in the speculative runs: random prompts
 # give the n-gram drafter nothing to match
 MOTIF = [11, 42, 7, 99]
@@ -197,15 +203,16 @@ def serving_case(torch, B, ctxs, seed):
 
 
 def check_kernels(torch, pa, c, atol, label, live=None):
-    """Both kernels against their plain versions on one case; returns each
-    kernel's largest output difference.  The fused kernel's outputs are
-    compared on the first ``live`` lanes only (default all): padding lanes
-    all write and read the scrap page's slot 0 at once, so theirs are
-    whatever row won.  In bf16 both sides compute in f32 and round once, so
-    besides ``atol`` every element must lie within one bf16 ulp of the
-    plain version's (|diff| <= 2^-7 |plain| + 1e-5): at context 512 one
-    dropped token moves an output by about 2e-3, past that limit, where
-    ``atol`` alone would not notice it."""
+    """Both decode kernels against their plain versions on one case, and
+    ``paged_attention`` bitwise ``fused_decode_attention`` on the pools
+    that one wrote; returns each kernel's largest output difference.  The
+    fused kernel's outputs are compared on the first ``live`` lanes only
+    (default all): padding lanes all write and read the scrap page's slot 0
+    at once, so theirs are whatever row won.  In bf16 both sides compute
+    in f32 and round once, so besides ``atol`` every element must lie
+    within one bf16 ulp of the plain version's (|diff| <= 2^-7 |plain| +
+    1e-5): at context 512 one dropped token moves an output by about 2e-3,
+    past that limit, where ``atol`` alone would not notice it."""
     out_k = pa.paged_attention(c["q"], c["k_pages"], c["v_pages"],
                                c["tables"], c["ctx"])
     out_p = pa.paged_attention_ref(c["q"], c["k_pages"], c["v_pages"],
@@ -217,9 +224,12 @@ def check_kernels(torch, pa, c, atol, label, live=None):
                                              kk, vk, c["tables"], pos)
     fo_p, kr, vr = pa.fused_decode_attention_ref(
         c["q"], c["k_new"], c["v_new"], kr, vr, c["tables"], pos)
+    # the attend-only kernel on the pools the fused one wrote: bitwise
+    out_a = pa.paged_attention(c["q"], kk, vk, c["tables"], c["ctx"])
     torch.cuda.synchronize()
     pools_equal = bool(torch.equal(kk[:-1], kr[:-1])
                        and torch.equal(vk[:-1], vr[:-1]))
+    same = bool(torch.equal(out_a[:live], fo_k[:live]))
     errs = {}
     for name, k, p in (("paged_attention", out_k, out_p),
                        ("fused_decode_attention", fo_k[:live], fo_p[:live])):
@@ -232,8 +242,11 @@ def check_kernels(torch, pa, c, atol, label, live=None):
     print(f"  {label}: paged_attention max|diff| "
           f"{errs['paged_attention']:.3e}, fused_decode_attention max|diff| "
           f"{errs['fused_decode_attention']:.3e}, pools equal off the scrap "
-          f"page: {pools_equal}")
+          f"page: {pools_equal}, paged_attention bitwise "
+          f"fused_decode_attention: {same}")
     check(pools_equal, f"fused_decode_attention {label}: pools differ")
+    check(same, f"paged_attention {label}: differs from "
+          "fused_decode_attention on the pools it wrote")
     return errs
 
 
@@ -357,13 +370,133 @@ def check_verify_all(torch, pa) -> float:
         dtype = getattr(torch, dt)
         c = verify_case(torch, B, W, H, KV, D, page, ctxs, widths, dtype,
                         seed=500 + i)
-        per, blocks, _ = pa.verify_blocking(W, H // KV, D,
-                                            dtype.itemsize)
+        per, groups, chunks, _, _ = pa.blocking(
+            W, H // KV, D, dtype.itemsize, c["tables"].shape[1], page)
         check_verify(torch, pa, c, 1e-5 if dt == "float32" else 2e-2,
                      f"{dt} B={B} W={W} H={H} KV={KV} D={D} page={page} "
-                     f"({blocks} blocks of {per} tasks per lane and "
-                     "kv-head)")
+                     f"({groups} groups of {per} tasks x {chunks} chunks "
+                     "per lane and kv-head)")
+    # windows across chunk edges, one straddling each, the last row one
+    # token short of the table's capacity; G = 3 and G = 7 at D = 128
+    C = pa.CHUNK
+    for i, (B, W, H, KV, D, ctxs, widths, dt) in enumerate((
+            (4, 5, 32, 4, 64, [C - 2, C + 1, 2 * C - 3, 4 * C - 4],
+             [5, 5, 5, 5], "bfloat16"),
+            (3, 9, 32, 4, 64, [C - 8, 2 * C - 1, 3 * C - 4], [9, 9, 9],
+             "bfloat16"),
+            (2, 4, 24, 8, 128, [C - 1, 2 * C + 1], [4, 3], "float32"),
+            (2, 4, 24, 8, 128, [C - 1, 2 * C + 1], [4, 3], "bfloat16"),
+            (2, 3, 56, 8, 128, [C, 3 * C - 2], [3, 3], "float32"),
+            (2, 3, 56, 8, 128, [C, 3 * C - 2], [3, 3], "bfloat16"))):
+        dtype = getattr(torch, dt)
+        c = verify_case(torch, B, W, H, KV, D, 16, ctxs, widths, dtype,
+                        seed=550 + i)
+        err = check_verify(torch, pa, c, 1e-5 if dt == "float32" else 2e-2,
+                           f"{dt} B={B} W={W} H={H} KV={KV} D={D} "
+                           f"ctx {ctxs[0]}..{max(ctxs) + W - 1} across "
+                           f"{C}-token chunk edges")
+        if (H, KV, D, dt) == (32, 4, 64, "bfloat16"):
+            worst = max(worst, err)
     return worst
+
+
+def lane_alone(torch, pa) -> None:
+    """A lane's outputs do not depend on the lanes beside it: each live
+    lane of a 64-lane serving call (8 live at contexts across chunk edges
+    up to the table's capacity, 56 padding lanes) bitwise equal to the same
+    lane in a call of its own, for all three kernels (the verify kernel at
+    W=5 on 64 lanes, 8 drafted)."""
+    C = pa.CHUNK
+    ctxs = [min(x, 256) for x in (1, C - 1, C, C + 1, 2 * C - 1, 2 * C, 200,
+                                  251)]
+    c = serving_case(torch, 64, ctxs, seed=260)
+    pos = c["ctx"] - 1
+    kk, vk = c["k_pages"].clone(), c["v_pages"].clone()
+    together, _, _ = pa.fused_decode_attention(
+        c["q"], c["k_new"], c["v_new"], kk, vk, c["tables"], pos)
+    att = pa.paged_attention(c["q"], c["k_pages"], c["v_pages"], c["tables"],
+                             c["ctx"])
+    v = verify_case(torch, 8, 5, 32, 4, 64, 16, [x + 1 for x in ctxs],
+                    [5, 1, 5, 3, 5, 2, 4, 5], torch.bfloat16, seed=261,
+                    lanes=64)
+    vt, _, _ = pa.fused_verify_attention(
+        v["q"], v["k_new"], v["v_new"], v["k_pages"].clone(),
+        v["v_pages"].clone(), v["tables"], v["pos0"], v["widths"])
+    same = 0
+    for i in range(len(ctxs)):
+        one = slice(i, i + 1)
+        k1, v1 = c["k_pages"].clone(), c["v_pages"].clone()
+        o1, _, _ = pa.fused_decode_attention(
+            c["q"][one], c["k_new"][one], c["v_new"][one], k1, v1,
+            c["tables"][one], pos[one])
+        a1 = pa.paged_attention(c["q"][one], c["k_pages"], c["v_pages"],
+                                c["tables"][one], c["ctx"][one])
+        w = int(v["widths"][i])
+        r1, _, _ = pa.fused_verify_attention(
+            v["q"][one], v["k_new"][one], v["v_new"][one],
+            v["k_pages"].clone(), v["v_pages"].clone(), v["tables"][one],
+            v["pos0"][one], v["widths"][one])
+        same += (torch.equal(o1[0], together[i]) + torch.equal(a1[0], att[i])
+                 + torch.equal(r1[0, :w], vt[i, :w]))
+    torch.cuda.synchronize()
+    print(f"  a lane alone vs among 64 (8 live at ctx {ctxs}): "
+          f"{same}/{3 * len(ctxs)} bitwise equal (fused decode, attend only, "
+          "verify W=5)")
+    check(same == 3 * len(ctxs), "a lane's outputs depend on the lanes "
+          "beside it")
+
+
+def check_paged_all(torch, pa) -> dict:
+    """Every check of the three paged kernels: each against its plain
+    version (bf16 main and serving shapes, contexts across chunk edges and
+    at the table's capacity, f32 sweeps with G = 3 and G = 7 at D = 128),
+    ``paged_attention`` bitwise ``fused_decode_attention``, every verify
+    case bitwise chained decode launches, a lane alone bitwise among 64.
+    Returns each kernel's largest error at the main path's shapes."""
+    print(f"paged kernels vs plain versions ({pa.CHUNK}-token chunks):")
+    main_err = dict.fromkeys(pa.launches, 0.0)   # at the main path's shapes
+    C = pa.CHUNK
+    main_ctxs = {1: [512], 8: [1, 15, 16, 17, 100, 256, 511, 512],
+                 # chunk edges, the last at the table's capacity (4 chunks)
+                 9: [C - 1, C, C + 1, 2 * C - 1, 2 * C + 1, 3 * C,
+                     4 * C - 65, 4 * C - 1, 4 * C]}
+    for B, ctxs in main_ctxs.items():
+        c = case(torch, B, 32, 4, 64, 16, ctxs, torch.bfloat16, seed=B)
+        errs = check_kernels(torch, pa, c, 2e-2,
+                             f"bf16 B={B} H=32 KV=4 D=64 ctx<={max(ctxs)}")
+        main_err.update({k: max(main_err[k], v) for k, v in errs.items()})
+    # the serving path's own call shapes: 8 live lanes at contexts across
+    # page and chunk edges, beside padding lanes on the all-scrap table (a
+    # batch of 5 pads to 8 lanes; 64 lanes is the widest padding checked)
+    edges = [min(x, 256) for x in (C - 1, C, C + 1, 2 * C - 1, 2 * C, 240,
+                                   255, 256)]      # capacity 256
+    for B, live, ctxs, seed in ((8, 5, [1, 15, 16, 17, 32], 213),
+                                (8, 8, [1, 15, 16, 17, 32, 33, 48, 52], 216),
+                                (64, 8, [1, 15, 16, 17, 32, 33, 48, 52], 272),
+                                (64, 8, edges, 290)):
+        c = serving_case(torch, B, ctxs, seed=seed)
+        errs = check_kernels(torch, pa, c, 2e-2,
+                             f"bf16 B={B} ({live} live, ctx<={max(ctxs)}) "
+                             f"H=32 KV=4 D=64 n_max=16", live=live)
+        main_err.update({k: max(main_err[k], v) for k, v in errs.items()})
+    sweep = [(3, 6, 3, 64, 16, [1, 40, 200]),       # GQA, heads not 2^k
+             (2, 8, 1, 128, 16, [77, 300]),         # MQA, D=128
+             (2, 16, 4, 16, 8, [5, 64]),            # D=16, page 8
+             (2, 8, 2, 128, 16, [128, 129]),        # D=128, page edge
+             (4, 24, 8, 128, 16, [1, C, C + 1, 3 * C]),     # G = 3
+             (4, 56, 8, 128, 16, [C - 1, 2 * C, 2 * C + 1, 300])]  # G = 7
+    for i, (B, H, KV, D, page, ctxs) in enumerate(sweep):
+        for dt, tol in (("float32", 1e-5), ("bfloat16", 2e-2)):
+            if dt == "bfloat16" and KV != 8:
+                continue                          # bf16 at G = 3 and 7 only
+            c = case(torch, B, H, KV, D, page, ctxs, getattr(torch, dt),
+                     seed=100 + i)
+            check_kernels(torch, pa, c, tol,
+                          f"{dt} B={B} H={H} KV={KV} D={D} page={page} "
+                          f"ctx {ctxs}")
+    main_err["fused_verify_attention"] = check_verify_all(torch, pa)
+    lane_alone(torch, pa)
+    return main_err
 
 
 def median_ms(torch, fn, flush, reps=30):
@@ -387,6 +520,100 @@ def median_ms(torch, fn, flush, reps=30):
         events.append((a, b))
     torch.cuda.synchronize()
     return statistics.median(a.elapsed_time(b) for a, b in events)
+
+
+def chunk_defines(chunk, default):
+    """nvcc defines of the paged kernels' build at ``chunk``-token chunks:
+    none at the wrapper's own ``CHUNK``."""
+    return () if chunk == default else (f"REPRO_CHUNK={chunk}",)
+
+
+def build_all(build, libs, default):
+    """Build ``libs`` and the paged kernels at every other chunk length of
+    ``CHUNKS``, one ``nvcc`` for each, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    jobs = [(libs, ())] + [(["paged_attention"], chunk_defines(c, default))
+                           for c in CHUNKS if c != default]
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        for f in [ex.submit(build.build, n, d) for n, d in jobs]:
+            f.result()
+
+
+def use_chunk(pa, build, chunk, default):
+    """Point the paged wrappers at the library built with ``chunk``-token
+    chunks (``default``: the wrapper's own)."""
+    pa.CHUNK = chunk
+    pa._lib = pa._bind(build.load("paged_attention",
+                                  chunk_defines(chunk, default)))
+
+
+def paged_calls(torch, pa):
+    """The paged kernels' timed calls, {label: fn}, bf16, H=32, KV=4, D=64,
+    page 16: at the timing shape (B=8, ctx 512) the two decode kernels, the
+    verify kernel at W=1 and W=5 (the last row at ctx 512) and with every
+    width 0 (each block exits at once: the launch's floor); the fused decode
+    kernel and the verify kernel at W=1 at contexts 64, 128 and 256; at the
+    serving shape (64 lanes, 8 live at ctx 240, n_max 16) the two decode
+    kernels and the verify kernel at W=1 and W=5."""
+    B, H, KV, D, page, W = 8, 32, 4, 64, 16, 5
+    bf = torch.bfloat16
+    names = ("q", "k_new", "v_new", "k_pages", "v_pages", "tables", "pos0",
+             "widths")
+    out = {}
+
+    def decode(label, c, attend=True):
+        pos = c["ctx"] - 1
+        out[f"fused_decode_attention {label}"] = lambda: \
+            pa.fused_decode_attention(c["q"], c["k_new"], c["v_new"],
+                                      c["k_pages"], c["v_pages"],
+                                      c["tables"], pos)
+        if attend:
+            out[f"paged_attention {label}"] = lambda: pa.paged_attention(
+                c["q"], c["k_pages"], c["v_pages"], c["tables"], c["ctx"])
+
+    def verify(label, v):
+        out[f"fused_verify_attention {label}"] = lambda: \
+            pa.fused_verify_attention(*(v[k] for k in names))
+
+    decode("ctx 512", case(torch, B, H, KV, D, page, [512] * B, bf, seed=7))
+    verify("W=1 ctx 512", verify_case(torch, B, 1, H, KV, D, page,
+                                      [512] * B, [1] * B, bf, seed=8))
+    for w in (W, 0):
+        verify(f"W={W} ctx 512" + (" widths 0" if w == 0 else ""),
+               verify_case(torch, B, W, H, KV, D, page, [512 - W + 1] * B,
+                           [w] * B, bf, seed=8))
+    for ctx in (64, 128, 256):
+        decode(f"ctx {ctx}", case(torch, B, H, KV, D, page, [ctx] * B, bf,
+                                  seed=7), attend=False)
+        verify(f"W=1 ctx {ctx}", verify_case(torch, B, 1, H, KV, D, page,
+                                             [ctx] * B, [1] * B, bf, seed=8))
+    serving = "serving (64 lanes, 8 live at ctx 240)"
+    decode(serving, serving_case(torch, 64, [240] * 8, seed=9))
+    for w in (1, W):
+        verify(f"W={w} {serving}", verify_case(
+            torch, 8, w, H, KV, D, page, [240] * 8, [w] * 8, bf, seed=10,
+            lanes=64))
+    return out
+
+
+def chunk_sweep(torch, pa, build, flush, default) -> None:
+    """``paged_calls`` with the paged kernels built at every chunk length of
+    ``CHUNKS`` (L2 flushed, median of CUDA events), one line per call; the
+    wrappers are left on the default chunk length."""
+    calls = paged_calls(torch, pa)
+    times = {label: [] for label in calls}
+    for chunk in CHUNKS:
+        use_chunk(pa, build, chunk, default)
+        for label, fn in calls.items():
+            times[label].append(median_ms(torch, fn, flush))
+    use_chunk(pa, build, default, default)
+    print(f"paged kernels by chunk length (tokens a block covers; "
+          f"{default} is the wrappers'), bf16, L2 flushed, median of CUDA "
+          "events:")
+    for label, ms in times.items():
+        print(f"  {label}: " + ", ".join(
+            f"C={c} {t:.4f} ms" for c, t in zip(CHUNKS, ms)))
 
 
 def serve(torch, pa, fused=True, decode_steps=1, scheduler="gmg", spec=0,
@@ -703,9 +930,7 @@ def decode_breakdown(torch, be) -> None:
                                               wid, tabs))
         for name, fn in calls.items():
             wall_ms, busy_ms, n, top = profiled(torch, fn)
-            attn = sum(ms for ms, _, key in top
-                       if "fused_verify_kernel" in key
-                       or "fused_decode_kernel" in key)
+            attn = sum(ms for ms, _, key in top if "paged_kernel" in key)
             print(f"  {name}, {B} lanes ({live} live at ctx {ctx}): wall "
                   f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms (idle "
                   f"share {1 - busy_ms / wall_ms:.3f}), {n:.0f} kernels, "
@@ -757,28 +982,36 @@ def ptxas_report(log, fa) -> None:
           "no bf16 flash kernel in the build's ptxas report")
 
 
-def verify_ptxas_report(log, pa) -> None:
-    """Registers and spills of each verify kernel instance (element type;
-    16-byte cp.async copies or plain ones), beside its dynamic shared
-    memory at the serving shape (W=5, G=8, D=64) and at MQA's (W=9, G=32,
-    D=128), where the host's blocking agrees with the kernel's own."""
+def paged_ptxas_report(log, pa) -> None:
+    """Registers and spills of each instance of the paged kernels' body
+    (element type; 16-byte cp.async copies or plain ones; decode/verify or
+    attend only), beside its dynamic shared memory and blocking at the
+    decode shape (W=1, G=8, D=64, capacity 256), the verify serving shape
+    (W=5) and MQA's (W=9, G=32, D=128), where the host's shared memory and
+    chunk length agree with the kernel's own."""
+    lib = pa._kernels()
+    check(lib.paged_chunk_tokens() == pa.CHUNK, "chunk length: the host and "
+          "the kernel disagree")
     for m, regs, spills in ptxas_entries(
-            log, r"fused_verify_kernelI(13__nv_bfloat16|f)Lb([01])E"):
+            log, r"paged_kernelI(13__nv_bfloat16|f)Lb([01])ELb([01])E"):
         elem = 2 if m.group(1) != "f" else 4
-        smem = []
-        for W, G, D in ((5, 8, 64), (9, 32, 128)):
-            per, blocks, nbytes = pa.verify_blocking(W, G, D, elem)
-            check(nbytes == pa._kernels().fused_verify_smem_bytes(
-                per, D, elem == 2), "verify shared memory: the host and "
-                "the kernel disagree")
-            smem.append(f"{nbytes} B at W={W} G={G} D={D} ({blocks} blocks "
-                        f"of {per} tasks per lane and kv-head)")
-        print(f"  fused_verify_kernel<{'bf16' if elem == 2 else 'f32'}, "
-              f"{'cp.async' if m.group(2) == '1' else 'plain copies'}>: "
-              f"{regs} registers, {spills}, dynamic shared memory "
-              + "; ".join(smem) + ", 256 threads")
-    check(log == "" or "fused_verify_kernel" in log,
-          "no verify kernel in the build's ptxas report")
+        shapes = []
+        for W, G, D in ((1, 8, 64), (5, 8, 64), (9, 32, 128)):
+            per, groups, chunks, nbytes, part = pa.blocking(W, G, D, elem,
+                                                            16, 16)
+            check(nbytes == lib.fused_verify_smem_bytes(per, D, elem == 2),
+                  "shared memory: the host and the kernel disagree")
+            shapes.append(f"{nbytes} B at W={W} G={G} D={D} ({groups} "
+                          f"groups of {per} tasks x {chunks} chunks, "
+                          f"{part} B of partials per lane and kv-head)")
+        print(f"  paged_kernel<{'bf16' if elem == 2 else 'f32'}, "
+              f"{'cp.async' if m.group(2) == '1' else 'plain copies'}, "
+              f"{'fused' if m.group(3) == '1' else 'attend only'}>: {regs} "
+              f"registers, {spills}, dynamic shared memory "
+              + "; ".join(shapes) + f", 256 threads, {pa.CHUNK}-token "
+              "chunks")
+    check(log == "" or "paged_kernel" in log,
+          "no paged kernel in the build's ptxas report")
 
 
 def check_flash(torch, fa) -> float:
@@ -1043,40 +1276,17 @@ def main() -> int:
     # 2. build
     t_start = t0 = time.perf_counter()
     libs = ["paged_attention", "flash_attention"]
-    build.build(libs)
+    default_chunk = pa.CHUNK
+    build_all(build, libs, default_chunk)
     print(f"build: {time.perf_counter() - t0:.2f} s ("
-          + ", ".join(build.library_path(n).name for n in libs) + ")")
+          + ", ".join(build.library_path(n).name for n in libs) + ", and "
+          "the paged kernels at chunk lengths "
+          + ", ".join(str(c) for c in CHUNKS if c != default_chunk) + ")")
     ptxas_report(build.build_log("flash_attention"), fa)
-    verify_ptxas_report(build.build_log("paged_attention"), pa)
+    paged_ptxas_report(build.build_log("paged_attention"), pa)
 
     # 3. kernels against their plain versions
-    print("kernels vs plain versions:")
-    main_err = dict.fromkeys(pa.launches, 0.0)   # at the main path's shapes
-    main_ctxs = {1: [512], 8: [1, 15, 16, 17, 100, 256, 511, 512]}
-    for B, ctxs in main_ctxs.items():
-        c = case(torch, B, 32, 4, 64, 16, ctxs, torch.bfloat16, seed=B)
-        errs = check_kernels(torch, pa, c, 2e-2,
-                             f"bf16 B={B} H=32 KV=4 D=64 ctx<={max(ctxs)}")
-        main_err.update({k: max(main_err[k], v) for k, v in errs.items()})
-    # the serving path's own call shapes: 8 live lanes at contexts across
-    # page edges, beside padding lanes on the all-scrap table (a batch of
-    # 5 pads to 8 lanes; 64 lanes is the widest padding checked)
-    live_ctxs = [1, 15, 16, 17, 32, 33, 48, 52]
-    for B, live in ((8, 5), (8, 8), (64, 8)):
-        c = serving_case(torch, B, live_ctxs[:live], seed=200 + B + live)
-        errs = check_kernels(torch, pa, c, 2e-2,
-                             f"bf16 B={B} ({live} live, ctx<=52) H=32 KV=4 "
-                             f"D=64 n_max=16", live=live)
-        main_err.update({k: max(main_err[k], v) for k, v in errs.items()})
-    sweep = [(3, 6, 3, 64, 16, [1, 40, 200]),       # GQA, heads not 2^k
-             (2, 8, 1, 128, 16, [77, 300]),         # MQA, D=128
-             (2, 16, 4, 16, 8, [5, 64]),            # D=16, page 8
-             (2, 8, 2, 128, 16, [128, 129])]        # D=128, page edge
-    for i, (B, H, KV, D, page, ctxs) in enumerate(sweep):
-        c = case(torch, B, H, KV, D, page, ctxs, torch.float32, seed=100 + i)
-        check_kernels(torch, pa, c, 1e-5,
-                      f"f32 B={B} H={H} KV={KV} D={D} page={page}")
-    main_err["fused_verify_attention"] = check_verify_all(torch, pa)
+    main_err = check_paged_all(torch, pa)
 
     # 4. end to end at full width
     print("serving tinyllama-1.1b (full width, bf16, random weights), gmg:")
@@ -1263,6 +1473,9 @@ def main() -> int:
             plain_ms=plain_ms, bound_ms=bound_ms,
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             library_ms=lib_of[name]))
+
+    # 5b. the paged kernels at every chunk length
+    chunk_sweep(torch, pa, build, flush, default_chunk)
 
     # 6. the full-sequence forward: the flash kernel against its plain
     # version, then each model in f32 and on its bf16 main path

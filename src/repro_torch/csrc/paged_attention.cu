@@ -1,82 +1,83 @@
 // Paged decode attention for Hopper (sm_90a), bound to Python with ctypes.
 //
-// Replaces the TPU (Pallas) kernels of src/repro/kernels/paged_attention.py:
-//   paged_attention_launch         <- paged_attention        (body _kernel)
-//   fused_decode_attention_launch  <- fused_decode_attention (body _fused_kernel)
-//   fused_verify_attention_launch  <- fused_verify_attention (what its
-//                                     one-pass _verify_multirow /
-//                                     _verify_kernel intend; its chained
-//                                     _verify_unrolled is the parity target)
+// One kernel body, `paged_kernel`, replaces the three TPU (Pallas) kernels
+// of src/repro/kernels/paged_attention.py:
+//   paged_attention_launch         <- paged_attention / _kernel (def :462,
+//                                     pallas_call :491)
+//   fused_decode_attention_launch  <- fused_decode_attention / _fused_kernel
+//                                     (def :147, pallas_call :205)
+//   fused_verify_attention_launch  <- fused_verify_attention (def :290,
+//                                     pallas_call :398; what its one-pass
+//                                     _verify_multirow / _verify_kernel
+//                                     intend; its chained _verify_unrolled
+//                                     is the parity target)
 //
-// What bounds it: decode attention is bound by memory on this card.  Each
-// lane reads ctx*KV*D*2 elements of K and V for about 4*ctx*H*D flops, near
-// one flop per byte in bf16, far below the roughly 295 flops per byte at
-// which the H100's arithmetic rather than its memory becomes the limit.
-// What the design does about it: a block walks only the live pages of its
-// lane, up to the context length (the Pallas grid visits all n_max pages
-// and masks the dead ones), and it stages each K/V row once in shared memory
-// for all G = H/KV query heads of its group, so every K/V element is read
-// from device memory once.
+// Layout, as in the reference: k/v pools (P,page,KV,D); block tables
+// (B,n_max) int32; query head h*G+g belongs to kv-head h (G = H/KV).  The
+// body takes W window rows per lane: q (B,W,H,D), new K/V (B,W,KV,D), row
+// 0's position and the live width (B,).  Row s of lane b is the decode step
+// at position p0+s and attends ctx = p0+s+1 tokens (never past the table).
+// The entry points are the body with:
+//   fused_verify_attention  W rows, p0 = pos0, widths given;
+//   fused_decode_attention  W = 1, p0 = positions, width 1;
+//   paged_attention         W = 1, p0 = ctx_lens - 1, width 1, and every
+//                           token from the pool: nothing is written.
+// So a live verify row is bitwise the decode step at its position (spec-on
+// token streams equal spec-off), and paged_attention is bitwise
+// fused_decode_attention on the pools that one wrote (fused and unfused
+// streams agree): one body, one sequence of arithmetic per (row, head).
 //
-// Layout, as in the reference: q (B,H,D); k/v pools (P,page,KV,D); block
-// tables (B,n_max) int32; context lengths / positions (B,) int32; out
-// (B,H,D).  Query head h*G+g belongs to kv-head h.  The decode kernels run
-// one block per (lane b, kv-head h); the online-softmax state (m, l, acc)
-// of its G heads lives in f32 shared memory and the output is
-// acc / max(l, 1e-30).
+// What bounds it: memory.  A lane reads ctx*KV*D K and V elements for
+// about 4*ctx*H*D flops, near one flop per byte in bf16, far below the
+// roughly 295 flops per byte where the H100's arithmetic becomes the limit:
+// at B=8, ctx 512, H=32, KV=4, D=64, bf16 the bytes take 1.28 us at 3.35
+// TB/s.  A block walks only the live tokens of its lane (the Pallas grid
+// visits all n_max pages and masks the dead ones) and stages each K/V row
+// once for all the (row, head) tasks of its kv-head, so each element is
+// read from device memory once per block that needs it.
 //
-// Both decode entry points run the same __device__ routine `attend`, so
-// for equal pools their outputs are bitwise equal.  The fused entry point
-// first writes its kv-head's slice of the lane's new K/V row into the one
-// target slot, then synchronises the block and attends; it writes nothing
-// else.  Retired
-// and padded lanes carry all-scrap tables, so several blocks may write the
-// scrap page at once; no live table names that page, so the race is benign.
-//
-// The verify entry point (speculative decoding) takes W window rows per
-// lane: q (B,W,H,D), new K/V (B,W,KV,D), pos0 and widths (B,).  Row s of
-// lane b is the fused decode step at position pos0+s: it attends ctx =
-// pos0+s+1 tokens.  Its unit of work is a task, one query head g of one
-// window row s (task s*G+g); a block takes `per` consecutive tasks of one
-// (lane, kv-head), one warp per task (a warp runs its tasks in turn), and
-// the grid is (B, KV, ceil(W*G/per)).  The host picks `per`
-// (kernels/paged_attention.py, verify_blocking): enough tasks for the
-// block's 8 warps, fewer where shared memory runs out, so at G = 8 each
-// row of a lane runs in a block of its own and a B=8, W=5 call has 160
-// blocks.  The block walks the 64-token tiles of its lane once, up to its
-// last live row's context: each tile is copied into a two-stage ring in
-// shared memory (cp.async, 16 bytes a thread, tile t+1 in flight while
-// tile t is scored, one barrier a tile), as stored (bf16 or f32), and
-// every live task whose context reaches the tile scores it with its own n
-// = min(64, ctx - t0).  Tokens of the window itself (pos0 ..
-// pos0+width-1) are staged from k_new / v_new, the same bits the pool will
-// hold, so no block reads a slot that is being written; block 0 of each
-// (lane, kv-head) alone writes the live rows into the pool.  Rows at or
-// past the width write nothing, not even their output rows, which are
-// unspecified.
-//
-// Bitwise contract: each live row equals the fused decode kernel at that
-// position, which keeps speculative token streams equal to plain
-// decoding.  Both bodies run the per-tile steps through the same inlined
-// helpers (score_chains, softmax_step, pv_chains, rescale, normalized):
-// the score as one fmaf chain over d and then the scale, the tile max and
-// sum lane-strided and then butterflies, l = l*corr + sum, p.v as one fmaf
-// chain over the tile's keys, acc = acc*corr + pv, acc / max(l, 1e-30).
-// The verify body only spreads these chains over more threads (a lane
-// scores keys lane and lane+32, and owns value columns lane, lane+32, ..)
-// and reads bf16 K/V and converts on read, which is exact.  The tensor
-// cores would sum q.k and p.v in another order, so they wait for the
-// redesign of the decode kernels, which will change the shared helpers
-// once and carry this kernel along.
-//
-// What bounds it: its bytes are 1.37 us at W=5, ctx 512 (3.35 TB/s), its
-// operations about as much.  What holds it back is instruction issue: a
-// warp spends about 1000 instructions on one (row, head) and tile (the
-// f32 FMAs of q.k and p.v, the bf16 conversions and shared-memory loads
-// around them), and each tile adds about 4 us at B=8, W=5 (PERF.md).  The
-// split over blocks and warps runs the W*G chains of a (lane, kv-head) at
-// once instead of one block's W passes in turn; each tile's copy overlaps
-// the previous tile's arithmetic (a deeper ring measured the same).
+// What the design does about it: fill the card, and overlap copies.
+// - Tasks.  A task is one query head g of one window row s (task s*G+g); a
+//   block takes `per` consecutive tasks of one (lane, kv-head), one warp per
+//   task (a warp runs its tasks in turn).  The host picks `per`
+//   (kernels/paged_attention.py, blocking): enough for the block's 8 warps,
+//   fewer where shared memory runs out.
+// - Chunks.  A block covers one chunk of kChunk consecutive tokens, [c*C,
+//   (c+1)*C).  The grid is (B, KV, task groups x chunks), with chunks =
+//   ceil(n_max*page / C), the table's capacity: shapes alone, no length read
+//   back to the host.  A block whose chunk starts at or past its live rows'
+//   contexts exits at once.  The split points are fixed token offsets,
+//   independent of B, W, `per` or the call's shape, so a row's arithmetic
+//   depends on its position alone: that keeps the bitwise contract above
+//   and results independent of batch grouping.
+// - Merge.  A row whose context fits in one chunk is finished by that
+//   block, which writes its output.  Otherwise each block writes the row's
+//   f32 partial (m, l, acc[D]) for its chunk; the block that takes the last
+//   ticket of its (lane, kv-head, task group) (an atomic counter, after
+//   __threadfence; it resets the counter to 0) merges each such row over
+//   exactly the chunks its context reaches, in chunk order, as the online
+//   softmax merges tiles: m' = max(m, m_c), l' = l*exp(m-m') +
+//   l_c*exp(m_c-m'), acc' the same, out = acc/max(l, 1e-30).  Blocks finish
+//   in any order; the merge's order does not depend on it.  No float
+//   atomics.
+// - Copies.  Inside its chunk a block walks 64-token tiles through a
+//   two-stage ring in shared memory (cp.async, 16 bytes a thread), two tiles
+//   in flight ahead of the one scored, as stored (bf16 or f32).  Tokens of
+//   the window itself (p0 .. p0+width-1) are staged from k_new / v_new, the
+//   bits the pool will hold, so no block reads a slot that is being
+//   written; the block of task group 0 and chunk 0 alone writes the live
+//   rows into the pool.  Rows at or past the width write nothing, not even
+//   their output rows, which are unspecified.  Retired and padded lanes
+//   carry all-scrap tables, so several blocks may write the scrap page at
+//   once; no live table names that page, so the race is benign.
+// - Per tile, a warp scores its task against the tile's keys (a lane scores
+//   keys lane and lane+32, each one fmaf chain over d, then the scale), takes
+//   the online-softmax step (tile max and sum lane-strided, then
+//   butterflies; l = l*corr + sum), and adds p.v (a lane owns pairs of value
+//   columns, each one fmaf chain over the tile's keys; acc = acc*corr + pv).
+//   bf16 is widened to f32 two at a time by shifts and masks, which is
+//   exact.  The tensor cores would sum q.k in another order; they are not
+//   used (the per-tile arithmetic is not what bounds the split kernel).
 //
 // Each C entry point returns cudaGetLastError() as an int (0 = success).
 
@@ -84,20 +85,51 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <climits>
+
+#ifndef REPRO_CHUNK
+#define REPRO_CHUNK 128
+#endif
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 64;          // tokens staged in shared memory per step
-constexpr float kNegInf = -1e30f;  // the reference's NEG_INF
+constexpr int kTile = 64;            // tokens staged in shared memory per step
+constexpr int kChunk = REPRO_CHUNK;  // tokens a block covers
+constexpr float kNegInf = -1e30f;    // the reference's NEG_INF
 constexpr size_t kMaxSmem = 232448;  // dynamic shared memory of a block
-constexpr int kStages = 2;           // the verify kernel's copy ring
+constexpr int kStages = 2;           // the copy ring
+static_assert(kChunk % kTile == 0 && kChunk > 0, "whole tiles per chunk");
 
 struct Geometry {
   int H, KV, D, page, n_max;
   float scale;
-  int vec;  // 1: pools 16-byte aligned and D*sizeof(T) a multiple of 16
 };
+
+// A launch's tensors and blocking.  fused: window rows come from k_new /
+// v_new and are written into the pools; lens holds each lane's row-0
+// position (fused) or context length (attend only); widths may be null
+// (every row live).
+template <typename T>
+struct Params {
+  const T* q;
+  const T* k_new;
+  const T* v_new;
+  T* kpool;
+  T* vpool;
+  const int* tables;
+  const int* lens;
+  const int* widths;
+  T* out;
+  float* part;   // f32 (m, l, acc[D]) per (lane, kv-head, task, chunk)
+  int* tickets;  // zeroed counters per (lane, kv-head, task group)
+  int W, per, groups;
+};
+
+__host__ __device__ inline int num_chunks(int tokens) {
+  return (tokens + kChunk - 1) / kChunk;
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -115,6 +147,32 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
+// Widen 16 bytes of elements to f32: bf16 pairs by a shift and a mask (the
+// bf16 bits are the high half of the f32), exactly as __bfloat162float.
+__device__ __forceinline__ void widen(const uint4& raw, float (&f)[4]) {
+  f[0] = __uint_as_float(raw.x);
+  f[1] = __uint_as_float(raw.y);
+  f[2] = __uint_as_float(raw.z);
+  f[3] = __uint_as_float(raw.w);
+}
+__device__ __forceinline__ void widen(const uint4& raw, float (&f)[8]) {
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+// two consecutive elements (a value-column pair)
+__device__ __forceinline__ float2 widen2(const float* v) {
+  return *reinterpret_cast<const float2*>(v);
+}
+__device__ __forceinline__ float2 widen2(const __nv_bfloat16* v) {
+  const uint32_t w = *reinterpret_cast<const uint32_t*>(v);
+  return make_float2(__uint_as_float(w << 16),
+                     __uint_as_float(w & 0xffff0000u));
+}
+
 // butterfly reductions: every lane ends with the same, order-fixed value
 __device__ __forceinline__ float warp_max(float v) {
   for (int off = 16; off > 0; off >>= 1)
@@ -128,22 +186,18 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // ---------------------------------------------------------------------------
-// The per-tile steps of one (query row, head), shared by every body so that
-// their arithmetic, and so their bits, are one source.
+// The per-tile steps of one (row, head)
 // ---------------------------------------------------------------------------
 
-// Scores of query q (D f32) against NR key rows k, k + kstep, ...: each one
-// fmaf chain over d = 0..D-1, then the scale (an unfused multiply, so that
-// no caller's compiler folds it into the next subtraction).  With kVec the
-// key rows (type T) are 16-byte aligned and read 16 bytes at a time, and q
-// is read as float4; the chain is the same.
-template <int NR, bool kVec, typename T>
-__device__ __forceinline__ void score_chains(const float* q, const T* k,
-                                             int kstep, int D, float scale,
-                                             float (&s)[NR]) {
-  float dot[NR];
-#pragma unroll
-  for (int r = 0; r < NR; ++r) dot[r] = 0.f;
+// Scores of query q (D f32) against key rows k and k + kstep: each one fmaf
+// chain over d = 0..D-1, then the scale (an unfused multiply, so that the
+// compiler does not fold it into the next subtraction).  With kVec the key
+// rows are 16-byte aligned and read 16 bytes at a time, and q as float4.
+template <bool kVec, typename T>
+__device__ __forceinline__ void score_pair(const float* q, const T* k,
+                                           int kstep, int D, float scale,
+                                           float (&s)[2]) {
+  float dot[2] = {0.f, 0.f};
   if constexpr (kVec) {
     constexpr int kE = 16 / sizeof(T);  // elements per 16 bytes
     for (int d0 = 0; d0 < D; d0 += kE) {
@@ -157,24 +211,23 @@ __device__ __forceinline__ void score_chains(const float* q, const T* k,
         qv[i + 3] = q4.w;
       }
 #pragma unroll
-      for (int r = 0; r < NR; ++r) {
-        const uint4 raw =
-            *reinterpret_cast<const uint4*>(k + (size_t)r * kstep + d0);
-        const T* kk = reinterpret_cast<const T*>(&raw);
+      for (int r = 0; r < 2; ++r) {
+        float kv[kE];
+        widen(*reinterpret_cast<const uint4*>(k + (size_t)r * kstep + d0),
+              kv);
 #pragma unroll
-        for (int i = 0; i < kE; ++i)
-          dot[r] = fmaf(qv[i], to_f32(kk[i]), dot[r]);
+        for (int i = 0; i < kE; ++i) dot[r] = fmaf(qv[i], kv[i], dot[r]);
       }
     }
   } else {
     for (int d = 0; d < D; ++d) {
 #pragma unroll
-      for (int r = 0; r < NR; ++r)
+      for (int r = 0; r < 2; ++r)
         dot[r] = fmaf(q[d], to_f32(k[(size_t)r * kstep + d]), dot[r]);
     }
   }
 #pragma unroll
-  for (int r = 0; r < NR; ++r) s[r] = __fmul_rn(dot[r], scale);
+  for (int r = 0; r < 2; ++r) s[r] = __fmul_rn(dot[r], scale);
 }
 
 // The online-softmax step of one (row, head) over a tile's n <= 64 scores,
@@ -205,24 +258,44 @@ __device__ __forceinline__ float softmax_step(float (&s)[2], int n, int lane,
   return corr;
 }
 
-// p . v over a tile's n keys for NC value columns v, v + cstep, ... (rows
-// vstride elements apart): each one fmaf chain over the keys in order.
-template <int NC, typename T>
-__device__ __forceinline__ void pv_chains(const float* p, const T* v,
-                                          int vstride, int cstep, int n,
-                                          float (&pv)[NC]) {
+// acc = acc*corr + p.v over a tile's n keys, for the value columns a lane
+// owns: with kVec the pairs (2j, 2j+1) for j = lane, lane+32, ...; else the
+// columns lane, lane+32, ...  Each column is one fmaf chain over the keys
+// in order; the probabilities are read four at a time.
+template <bool kVec, typename T>
+__device__ __forceinline__ void pv_step(const float* p, const T* v,
+                                        int vstride, int n, int D, int lane,
+                                        float corr, float* acc) {
+  if constexpr (kVec) {
+    for (int c = 2 * lane; c < D; c += 64) {
+      float a0 = 0.f, a1 = 0.f;
+      int j = 0;
+      for (; j + 4 <= n; j += 4) {
+        const float4 p4 = *reinterpret_cast<const float4*>(p + j);
+        const float pj[4] = {p4.x, p4.y, p4.z, p4.w};
 #pragma unroll
-  for (int c = 0; c < NC; ++c) pv[c] = 0.f;
-  for (int j = 0; j < n; ++j) {
-    const float pj = p[j];
-#pragma unroll
-    for (int c = 0; c < NC; ++c)
-      pv[c] = fmaf(pj, to_f32(v[(size_t)j * vstride + c * cstep]), pv[c]);
+        for (int u = 0; u < 4; ++u) {
+          const float2 vv = widen2(v + (size_t)(j + u) * vstride + c);
+          a0 = fmaf(pj[u], vv.x, a0);
+          a1 = fmaf(pj[u], vv.y, a1);
+        }
+      }
+      for (; j < n; ++j) {
+        const float2 vv = widen2(v + (size_t)j * vstride + c);
+        a0 = fmaf(p[j], vv.x, a0);
+        a1 = fmaf(p[j], vv.y, a1);
+      }
+      acc[c] = acc[c] * corr + a0;
+      acc[c + 1] = acc[c + 1] * corr + a1;
+    }
+  } else {
+    for (int c = lane; c < D; c += 32) {
+      float a = 0.f;
+      for (int j = 0; j < n; ++j)
+        a = fmaf(p[j], to_f32(v[(size_t)j * vstride + c]), a);
+      acc[c] = acc[c] * corr + a;
+    }
   }
-}
-
-__device__ __forceinline__ float rescale(float acc, float corr, float pv) {
-  return acc * corr + pv;
 }
 
 __device__ __forceinline__ float normalized(float acc, float l) {
@@ -230,191 +303,28 @@ __device__ __forceinline__ float normalized(float acc, float l) {
 }
 
 // ---------------------------------------------------------------------------
-// The decode kernels: one block per (lane, kv-head)
-// ---------------------------------------------------------------------------
-
-// Shared memory of a block, in floats:
-//   q[G*D] | acc[G*D] | k[kTile*(D+1)] | v[kTile*D] | s[G*kTile] | m,l,corr[G]
-// K rows are padded to D+1 floats so that the threads of a warp, which
-// score one head against consecutive tokens, read distinct banks.
-inline size_t smem_bytes(int G, int D) {
-  return sizeof(float) * (size_t)(2 * G * D + kTile * (D + 1) + kTile * D +
-                                  G * kTile + 3 * G);
-}
-
-// Copy tokens t0 .. t0+n-1 of kv-head h (rows of D contiguous elements,
-// scattered over the lane's pages) into k_s / v_s as f32, 16 bytes per
-// load where the layout allows it.
-template <typename T>
-__device__ void stage(const T* kpool, const T* vpool, const int* table, int t0,
-                      int n, int h, const Geometry& geo, float* k_s,
-                      float* v_s) {
-  constexpr int kVec = 16 / sizeof(T);
-  const int D = geo.D, Dk = D + 1;
-  const int w = geo.vec ? kVec : 1;  // elements per load
-  const int per_row = D / w;
-  for (int e = threadIdx.x; e < n * per_row; e += blockDim.x) {
-    const int j = e / per_row, c = (e - j * per_row) * w, t = t0 + j;
-    const size_t at =
-        (((size_t)table[t / geo.page] * geo.page + t % geo.page) * geo.KV +
-         h) * D + c;
-    if (geo.vec) {
-      const uint4 kr = *reinterpret_cast<const uint4*>(kpool + at);
-      const uint4 vr = *reinterpret_cast<const uint4*>(vpool + at);
-      const T* kk = reinterpret_cast<const T*>(&kr);
-      const T* vv = reinterpret_cast<const T*>(&vr);
-#pragma unroll
-      for (int i = 0; i < kVec; ++i) {
-        k_s[j * Dk + c + i] = to_f32(kk[i]);
-        v_s[j * D + c + i] = to_f32(vv[i]);
-      }
-    } else {
-      k_s[j * Dk + c] = to_f32(kpool[at]);
-      v_s[j * D + c] = to_f32(vpool[at]);
-    }
-  }
-}
-
-// GQA attention of query row `row` (its heads h*G .. h*G+G-1) over the
-// first ctx tokens named by `table`; q and out are (rows, H, D).  The pools
-// are read with plain loads (no read-only cache path): in the fused kernel
-// this block has just written one of their rows.
-template <typename T>
-__device__ void attend(const T* q, const T* kpool, const T* vpool,
-                       const int* table, int ctx, T* out, int row, int h,
-                       const Geometry& geo, float* smem) {
-  const int G = geo.H / geo.KV, D = geo.D, Dk = D + 1, tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  float* q_s = smem;
-  float* acc = q_s + G * D;
-  float* k_s = acc + G * D;
-  float* v_s = k_s + kTile * Dk;
-  float* s_s = v_s + kTile * D;
-  float* m_s = s_s + G * kTile;
-  float* l_s = m_s + G;
-  float* c_s = l_s + G;
-
-  const T* qb = q + ((size_t)row * geo.H + (size_t)h * G) * D;
-  for (int e = tid; e < G * D; e += blockDim.x) {
-    q_s[e] = to_f32(qb[e]);
-    acc[e] = 0.f;
-  }
-  for (int g = tid; g < G; g += blockDim.x) {
-    m_s[g] = kNegInf;
-    l_s[g] = 0.f;
-  }
-  ctx = min(ctx, geo.n_max * geo.page);  // never read past the table
-  __syncthreads();
-
-  for (int t0 = 0; t0 < ctx; t0 += kTile) {
-    const int n = min(kTile, ctx - t0);
-    stage<T>(kpool, vpool, table, t0, n, h, geo, k_s, v_s);
-    __syncthreads();
-    // scores s[g][j], one thread per (g, j)
-    for (int e = tid; e < G * n; e += blockDim.x) {
-      const int g = e / n, j = e - g * n;
-      float s[1];
-      score_chains<1, false>(q_s + g * D, k_s + j * Dk, 0, D, geo.scale, s);
-      s_s[g * kTile + j] = s[0];
-    }
-    __syncthreads();
-    // online-softmax update, one warp per query head
-    for (int g = warp; g < G; g += kWarps) {
-      float* sg = s_s + g * kTile;
-      float s[2] = {lane < n ? sg[lane] : 0.f,
-                    lane + 32 < n ? sg[lane + 32] : 0.f};
-      float m = m_s[g], l = l_s[g];
-      const float corr = softmax_step(s, n, lane, m, l);
-      if (lane < n) sg[lane] = s[0];
-      if (lane + 32 < n) sg[lane + 32] = s[1];
-      if (lane == 0) {
-        l_s[g] = l;
-        m_s[g] = m;
-        c_s[g] = corr;
-      }
-    }
-    __syncthreads();
-    // acc = acc * corr + p @ v, one thread per (g, d)
-    for (int e = tid; e < G * D; e += blockDim.x) {
-      const int g = e / D, d = e - g * D;
-      float pv[1];
-      pv_chains<1>(s_s + g * kTile, v_s + d, D, 0, n, pv);
-      acc[e] = rescale(acc[e], c_s[g], pv[0]);
-    }
-    __syncthreads();
-  }
-
-  T* ob = out + ((size_t)row * geo.H + (size_t)h * G) * D;
-  for (int e = tid; e < G * D; e += blockDim.x)
-    ob[e] = from_f32<T>(normalized(acc[e], l_s[e / D]));
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    paged_attention_kernel(const T* q, const T* kpool, const T* vpool,
-                           const int* tables, const int* ctx_lens, T* out,
-                           Geometry geo) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x, h = blockIdx.y;
-  attend<T>(q, kpool, vpool, tables + (size_t)b * geo.n_max, ctx_lens[b], out,
-            b, h, geo, smem);
-}
-
-// Write kv-head h's slice of one new K/V row (D elements at src) into token
-// slot pos of the lane's table; a slot past the table is not written.
-template <typename T>
-__device__ void put_row(const T* k_new, const T* v_new, size_t src, T* kpool,
-                        T* vpool, const int* table, int pos, int h,
-                        const Geometry& geo) {
-  const int slot = pos / geo.page;
-  if (slot >= geo.n_max) return;
-  const size_t row =
-      ((size_t)table[slot] * geo.page + pos % geo.page) * geo.KV + h;
-  for (int d = threadIdx.x; d < geo.D; d += blockDim.x) {
-    kpool[row * geo.D + d] = k_new[src + d];
-    vpool[row * geo.D + d] = v_new[src + d];
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    fused_decode_kernel(const T* q, const T* k_new, const T* v_new, T* kpool,
-                        T* vpool, const int* tables, const int* positions,
-                        T* out, Geometry geo) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x, h = blockIdx.y;
-  const int* table = tables + (size_t)b * geo.n_max;
-  const int pos = positions[b];
-  put_row<T>(k_new, v_new, ((size_t)b * geo.KV + h) * geo.D, kpool, vpool,
-             table, pos, h, geo);
-  // the block's global writes are visible to all its threads after this
-  __syncthreads();
-  attend<T>(q, kpool, vpool, table, pos + 1, out, b, h, geo, smem);
-}
-
-// ---------------------------------------------------------------------------
-// The verify kernel: a block per (lane, kv-head, group of `per` tasks)
+// Staging and pool writes
 // ---------------------------------------------------------------------------
 
 // Bytes of one staged K row and V row: D elements rounded up to 16 bytes;
 // a K row is padded by 16 more where that makes its length an odd number
 // of 16-byte units, so that the 8 lanes of a quarter-warp, which read the
 // rows of 8 consecutive keys 16 bytes at a time, hit distinct banks.
-__host__ __device__ inline int verify_v_row(int D, int elem) {
+__host__ __device__ inline int v_row_bytes(int D, int elem) {
   return (D * elem + 15) / 16 * 16;
 }
-__host__ __device__ inline int verify_k_row(int D, int elem) {
-  const int r = verify_v_row(D, elem);
+__host__ __device__ inline int k_row_bytes(int D, int elem) {
+  const int r = v_row_bytes(D, elem);
   return (r / 16) % 2 ? r : r + 16;
 }
 
-// Shared memory of a verify block (kernels/paged_attention.py computes the
-// same in verify_smem_bytes): kStages ring stages of kTile K and V rows |
-// q[per*D] | acc[per*D] | m,l[per] | p[kWarps*kTile], the last four f32.
-inline size_t verify_smem_bytes(int per, int D, int elem) {
+// Shared memory of a block (kernels/paged_attention.py computes the same
+// in verify_smem_bytes): kStages ring stages of kTile K and V rows |
+// p[kWarps*kTile] | q[per*D] | acc[per*D] | m,l[per], the last four f32.
+inline size_t smem_bytes(int per, int D, int elem) {
   return (size_t)kStages * kTile *
-             (verify_k_row(D, elem) + verify_v_row(D, elem)) +
-         sizeof(float) * ((size_t)2 * per * D + 2 * per + kWarps * kTile);
+             (k_row_bytes(D, elem) + v_row_bytes(D, elem)) +
+         sizeof(float) * ((size_t)kWarps * kTile + 2 * per * D + 2 * per);
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -426,29 +336,29 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
-// wait until at most kStages-2 of this thread's newest copy groups are
+// wait until at most kStages-1 of this thread's newest copy groups are
 // still in flight
 __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2) : "memory");
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 1) : "memory");
 }
 
 // Start copying tokens t0 .. t0+n-1 of kv-head h into one ring stage, as
-// stored: window tokens (t >= p0) from the new rows (lane-major (W, KV, D)
-// at `fresh`), the rest from the lane's pages.  With kVec by cp.async, 16
-// bytes a thread; without, by plain loads and stores.
+// stored: tokens at or past `from` out of the new rows (lane-major (W, KV,
+// D) at `fresh`), the rest from the lane's pages.  With kVec by cp.async,
+// 16 bytes a thread; without, by plain loads and stores.
 template <bool kVec, typename T>
-__device__ void stage_async(const T* kpool, const T* vpool, const T* k_new,
-                            const T* v_new, size_t fresh, const int* table,
-                            int t0, int n, int p0, int h, const Geometry& geo,
-                            char* k_dst, char* v_dst, int kr, int vr) {
+__device__ void stage(const T* kpool, const T* vpool, const T* k_new,
+                      const T* v_new, size_t fresh, const int* table, int t0,
+                      int n, int from, int h, const Geometry& geo,
+                      char* k_dst, char* v_dst, int kr, int vr) {
   const int D = geo.D;
   constexpr int kE = kVec ? 16 / sizeof(T) : 1;
   const int per_row = D / kE;
   for (int e = threadIdx.x; e < n * per_row; e += blockDim.x) {
     const int j = e / per_row, c = (e - j * per_row) * kE, t = t0 + j;
     const T *ks, *vs;
-    if (t >= p0) {
-      const size_t at = fresh + ((size_t)(t - p0) * geo.KV + h) * D + c;
+    if (t >= from) {
+      const size_t at = fresh + ((size_t)(t - from) * geo.KV + h) * D + c;
       ks = k_new + at;
       vs = v_new + at;
     } else {
@@ -470,53 +380,82 @@ __device__ void stage_async(const T* kpool, const T* vpool, const T* k_new,
   }
 }
 
-template <typename T, bool kVec>
-__global__ void __launch_bounds__(kThreads)
-    fused_verify_kernel(const T* q, const T* k_new, const T* v_new, T* kpool,
-                        T* vpool, const int* tables, const int* pos0,
-                        const int* widths, T* out, int W, int per,
-                        Geometry geo) {
-  extern __shared__ __align__(16) char vsmem[];
-  const int b = blockIdx.x, h = blockIdx.y, z = blockIdx.z;
-  const int G = geo.H / geo.KV, D = geo.D;
+// Write kv-head h's slice of one new K/V row (D elements at src) into token
+// slot pos of the lane's table; a slot past the table is not written.
+template <typename T>
+__device__ void put_row(const T* k_new, const T* v_new, size_t src, T* kpool,
+                        T* vpool, const int* table, int pos, int h,
+                        const Geometry& geo) {
+  const int slot = pos / geo.page;
+  if (slot >= geo.n_max) return;
+  const size_t row =
+      ((size_t)table[slot] * geo.page + pos % geo.page) * geo.KV + h;
+  for (int d = threadIdx.x; d < geo.D; d += blockDim.x) {
+    kpool[row * geo.D + d] = k_new[src + d];
+    vpool[row * geo.D + d] = v_new[src + d];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The body: a block per (lane, kv-head, task group, chunk)
+// ---------------------------------------------------------------------------
+
+// The launch bounds ask for one resident block per SM only, so that the
+// compiler is free to take more than 64 registers a thread (ptxas takes
+// 80-96; held to 64 it spilled).
+template <typename T, bool kVec, bool kFused>
+__global__ void __launch_bounds__(kThreads, 1)
+    paged_kernel(Params<T> a, Geometry geo) {
+  extern __shared__ __align__(16) char smem[];
+  __shared__ int is_last;
+  const int G = geo.H / geo.KV, D = geo.D, tasks = a.W * G;
+  const int cap = geo.n_max * geo.page;  // never read past the table
+  const int chunks = num_chunks(cap);
+  const int b = blockIdx.x, h = blockIdx.y;
+  const int grp = blockIdx.z / chunks, c = blockIdx.z - grp * chunks;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int* table = tables + (size_t)b * geo.n_max;
-  const int p0 = pos0[b];
-  const int width = max(0, min(widths[b], W));
-  const size_t fresh = (size_t)b * W * geo.KV * D;  // lane b's new rows
-  if (z == 0)  // the one writer of this (lane, kv-head)'s live rows
+  const int* table = a.tables + (size_t)b * geo.n_max;
+  const int p0 = kFused ? a.lens[b] : a.lens[b] - 1;  // row 0's position
+  const int width = a.widths ? max(0, min(a.widths[b], a.W)) : a.W;
+  const size_t fresh = (size_t)b * a.W * geo.KV * D;  // lane b's new rows
+  if (kFused && blockIdx.z == 0)  // the one writer of this (lane, kv-head)
     for (int s = 0; s < width; ++s)
-      put_row<T>(k_new, v_new, fresh + ((size_t)s * geo.KV + h) * D, kpool,
-                 vpool, table, p0 + s, h, geo);
-  const int first = z * per;                       // first task of the block
-  const int count = min(per, W * G - first);
+      put_row<T>(a.k_new, a.v_new, fresh + ((size_t)s * geo.KV + h) * D,
+                 a.kpool, a.vpool, table, p0 + s, h, geo);
+  const int first = grp * a.per;                   // first task of the block
+  const int count = min(a.per, tasks - first);
   const int last_row = min((first + count - 1) / G, width - 1);
   if (first / G > last_row) return;                // no live row here
-  const int cap = geo.n_max * geo.page;            // never read past the table
-  const int ctx_max = min(p0 + last_row + 1, cap);
+  const int ctx_hi = min(p0 + last_row + 1, cap);  // the group's widest row
+  const int live_chunks = max(1, num_chunks(ctx_hi));
+  if (c >= live_chunks) return;                    // the chunk is past it
+  const int t_lo = c * kChunk, t_hi = min(t_lo + kChunk, ctx_hi);
+  const int n_tiles = max(0, (t_hi - t_lo + kTile - 1) / kTile);
 
-  const int kr = verify_k_row(D, sizeof(T)), vr = verify_v_row(D, sizeof(T));
+  const int kr = k_row_bytes(D, sizeof(T)), vr = v_row_bytes(D, sizeof(T));
   const int stage_bytes = kTile * (kr + vr);
-  float* q_s = reinterpret_cast<float*>(vsmem + kStages * stage_bytes);
-  float* acc_s = q_s + per * D;
-  float* m_s = acc_s + per * D;
-  float* l_s = m_s + per;
-  float* p_s = l_s + per + warp * kTile;           // this warp's probabilities
+  float* p_s = reinterpret_cast<float*>(smem + kStages * stage_bytes);
+  float* q_s = p_s + kWarps * kTile;
+  float* acc_s = q_s + a.per * D;
+  float* m_s = acc_s + a.per * D;
+  float* l_s = m_s + a.per;
+  p_s += warp * kTile;                             // this warp's probabilities
 
-  // tile t goes to stage t % kStages, kStages-1 tiles ahead of the one
-  // scored; one copy group per tile, empty past the last tile
+  // tile t goes to stage t % kStages, issued kStages tiles ahead of the
+  // one scored; one copy group per tile, empty past the block's last tile
+  const int from = kFused ? p0 : INT_MAX;
   auto issue = [&](int t) {
-    const int t0 = t * kTile;
-    if (t0 < ctx_max) {
-      char* dst = vsmem + (t % kStages) * stage_bytes;
-      stage_async<kVec, T>(kpool, vpool, k_new, v_new, fresh, table, t0,
-                           min(kTile, ctx_max - t0), p0, h, geo, dst,
-                           dst + kTile * kr, kr, vr);
+    if (t < n_tiles) {
+      const int t0 = t_lo + t * kTile;
+      char* dst = smem + (t % kStages) * stage_bytes;
+      stage<kVec, T>(a.kpool, a.vpool, a.k_new, a.v_new, fresh, table, t0,
+                     min(kTile, t_hi - t0), from, h, geo, dst,
+                     dst + kTile * kr, kr, vr);
     }
     cp_async_commit();
   };
-  for (int t = 0; t < kStages - 1; ++t) issue(t);
-  const T* qb = q + (size_t)b * W * geo.H * D + (size_t)h * G * D;
+  for (int t = 0; t < kStages; ++t) issue(t);
+  const T* qb = a.q + (size_t)b * a.W * geo.H * D + (size_t)h * G * D;
   for (int e = tid; e < count * D; e += blockDim.x) {
     const int i = e / D, d = e - i * D, gt = first + i;
     q_s[e] = to_f32(qb[((size_t)(gt / G) * geo.H + gt % G) * D + d]);
@@ -527,56 +466,105 @@ __global__ void __launch_bounds__(kThreads)
     l_s[i] = 0.f;
   }
 
-  for (int t = 0, t0 = 0; t0 < ctx_max; ++t, t0 += kTile) {
+  const int kstride = kr / (int)sizeof(T), vstride = vr / (int)sizeof(T);
+  for (int t = 0; t < n_tiles; ++t) {
     cp_async_wait();
-    // tile t is in; every warp is done with tile t-1's stage
+    // tile t is in, q and the softmax state are set
     __syncthreads();
-    issue(t + kStages - 1);
-    const char* tile = vsmem + (t % kStages) * stage_bytes;
+    const int t0 = t_lo + t * kTile;
+    const char* tile = smem + (t % kStages) * stage_bytes;
     const T* k_t = reinterpret_cast<const T*>(tile);
     const T* v_t = reinterpret_cast<const T*>(tile + kTile * kr);
-    const int kstride = kr / (int)sizeof(T), vstride = vr / (int)sizeof(T);
     for (int i = warp; i < count; i += kWarps) {
       const int s_row = (first + i) / G;
       const int n = min(kTile, min(p0 + s_row + 1, cap) - t0);
       if (s_row >= width || n <= 0) continue;  // dead row, or its ctx ended
       float s[2];
-      score_chains<2, kVec>(q_s + i * D, k_t + (size_t)lane * kstride,
-                            32 * kstride, D, geo.scale, s);
+      score_pair<kVec>(q_s + i * D, k_t + (size_t)lane * kstride,
+                       32 * kstride, D, geo.scale, s);
       float m = m_s[i], l = l_s[i];
       const float corr = softmax_step(s, n, lane, m, l);
       if (lane < n) p_s[lane] = s[0];
       if (lane + 32 < n) p_s[lane + 32] = s[1];
       __syncwarp();
-      float* acc = acc_s + i * D;
-      int d = lane;
-      for (; d + 32 < D; d += 64) {
-        float pv[2];
-        pv_chains<2>(p_s, v_t + d, vstride, 32, n, pv);
-        acc[d] = rescale(acc[d], corr, pv[0]);
-        acc[d + 32] = rescale(acc[d + 32], corr, pv[1]);
-      }
-      if (d < D) {
-        float pv[1];
-        pv_chains<1>(p_s, v_t + d, vstride, 0, n, pv);
-        acc[d] = rescale(acc[d], corr, pv[0]);
-      }
+      pv_step<kVec>(p_s, v_t, vstride, n, D, lane, corr, acc_s + i * D);
       if (lane == 0) {
         m_s[i] = m;
         l_s[i] = l;
       }
       __syncwarp();  // p_s, m_s and l_s are read again by this warp
     }
+    if (t + kStages < n_tiles)
+      __syncthreads();  // every warp is done with this tile's stage
+    issue(t + kStages);
   }
+  if (n_tiles == 0) __syncthreads();  // q, acc, m, l set by other threads
 
+  // finish the rows that fit in one chunk; leave partials of the others
+  const size_t rec = (size_t)D + 2;  // floats of one partial: m, l, acc
+  const size_t bh = (size_t)b * geo.KV + h;
+  auto out_row = [&](int gt) {  // task gt's output row
+    return a.out + (((size_t)b * a.W + gt / G) * geo.H + (size_t)h * G +
+                    gt % G) * D;
+  };
   for (int i = warp; i < count; i += kWarps) {
     const int gt = first + i, s_row = gt / G;
     if (s_row >= width) continue;
-    const float l = l_s[i];
-    T* ob = out + (((size_t)b * W + s_row) * geo.H + (size_t)h * G + gt % G) *
-                      D;
-    for (int d = lane; d < D; d += 32)
-      ob[d] = from_f32<T>(normalized(acc_s[i * D + d], l));
+    const int row_chunks = max(1, num_chunks(min(p0 + s_row + 1, cap)));
+    if (c >= row_chunks) continue;
+    const float* acc = acc_s + i * D;
+    if (row_chunks == 1) {
+      const float l = l_s[i];
+      T* ob = out_row(gt);
+      for (int d = lane; d < D; d += 32)
+        ob[d] = from_f32<T>(normalized(acc[d], l));
+    } else {
+      float* pt = a.part + ((bh * tasks + gt) * chunks + c) * rec;
+      if (lane == 0) {
+        pt[0] = m_s[i];
+        pt[1] = l_s[i];
+      }
+      for (int d = lane; d < D; d += 32) pt[2 + d] = acc[d];
+    }
+  }
+  if (live_chunks == 1) return;  // no row of the group was split
+
+  // the last block of the (lane, kv-head, task group) to finish merges
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    int* counter = a.tickets + bh * a.groups + grp;
+    is_last = atomicAdd(counter, 1) == live_chunks - 1;
+    if (is_last) atomicExch(counter, 0);
+  }
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  for (int i = warp; i < count; i += kWarps) {
+    const int gt = first + i, s_row = gt / G;
+    if (s_row >= width) continue;
+    const int row_chunks = num_chunks(min(p0 + s_row + 1, cap));
+    if (row_chunks < 2) continue;
+    const float* pt = a.part + (bh * tasks + gt) * chunks * rec;
+    T* ob = out_row(gt);
+    // an online merge in chunk order; each step's loads do not depend on
+    // the step before, so they are in flight together
+#pragma unroll 2
+    for (int d = lane; d < D; d += 32) {
+      float m = kNegInf, l = 0.f, acc = 0.f;
+#pragma unroll 2
+      for (int k = 0; k < row_chunks; ++k) {
+        const float* pk = pt + k * rec;
+        const float mk = __ldcg(pk), lk = __ldcg(pk + 1);
+        const float ak = __ldcg(pk + 2 + d);
+        const float mx = fmaxf(m, mk), corr = expf(m - mx);
+        const float w = expf(mk - mx);
+        l = fmaf(lk, w, l * corr);
+        acc = fmaf(ak, w, acc * corr);
+        m = mx;
+      }
+      ob[d] = from_f32<T>(normalized(acc, l));
+    }
   }
 }
 
@@ -588,121 +576,97 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
-template <typename T>
-int launch_paged(const void* q, const void* kp, const void* vp,
-                 const void* tables, const void* ctx, void* out, int B,
-                 const Geometry& geo, cudaStream_t stream) {
-  const size_t smem = smem_bytes(geo.H / geo.KV, geo.D);
-  cudaError_t err = allow_smem(paged_attention_kernel<T>, smem);
-  if (err != cudaSuccess) return (int)err;
-  paged_attention_kernel<T><<<dim3(B, geo.KV), kThreads, smem, stream>>>(
-      (const T*)q, (const T*)kp, (const T*)vp, (const int*)tables,
-      (const int*)ctx, (T*)out, geo);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_fused(const void* q, const void* k_new, const void* v_new,
-                 void* kp, void* vp, const void* tables, const void* pos,
-                 void* out, int B, const Geometry& geo, cudaStream_t stream) {
-  const size_t smem = smem_bytes(geo.H / geo.KV, geo.D);
-  cudaError_t err = allow_smem(fused_decode_kernel<T>, smem);
-  if (err != cudaSuccess) return (int)err;
-  fused_decode_kernel<T><<<dim3(B, geo.KV), kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k_new, (const T*)v_new, (T*)kp, (T*)vp,
-      (const int*)tables, (const int*)pos, (T*)out, geo);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, bool kVec>
-int launch_verify(const void* q, const void* k_new, const void* v_new,
-                  void* kp, void* vp, const void* tables, const void* pos0,
-                  const void* widths, void* out, int B, int W, int per,
-                  const Geometry& geo, cudaStream_t stream) {
-  const int tasks = W * (geo.H / geo.KV);
-  const size_t smem = verify_smem_bytes(per, geo.D, sizeof(T));
-  if (per < 1 || per > tasks || smem > kMaxSmem)
+template <typename T, bool kVec, bool kFused>
+int launch(Params<T> a, int B, const Geometry& geo, cudaStream_t stream) {
+  const int tasks = a.W * (geo.H / geo.KV);
+  const size_t smem = smem_bytes(a.per, geo.D, sizeof(T));
+  const int chunks = num_chunks(geo.n_max * geo.page);
+  if (a.per < 1 || a.per > tasks || smem > kMaxSmem || chunks < 1)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(fused_verify_kernel<T, kVec>, smem);
+  a.groups = (tasks + a.per - 1) / a.per;
+  if ((long long)a.groups * chunks > 65535 ||
+      (chunks > 1 && (a.part == nullptr || a.tickets == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(paged_kernel<T, kVec, kFused>, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(B, geo.KV, (tasks + per - 1) / per);
-  fused_verify_kernel<T, kVec><<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k_new, (const T*)v_new, (T*)kp, (T*)vp,
-      (const int*)tables, (const int*)pos0, (const int*)widths, (T*)out, W,
-      per, geo);
+  const dim3 grid(B, geo.KV, a.groups * chunks);
+  paged_kernel<T, kVec, kFused><<<grid, kThreads, smem, stream>>>(a, geo);
   return (int)cudaGetLastError();
 }
 
-// 16-byte loads need 16-byte aligned pools and rows of whole 16 bytes
-int vec_ok(const void* k_pages, const void* v_pages, int D, int elem_bytes) {
-  return (D * elem_bytes) % 16 == 0 && (uintptr_t)k_pages % 16 == 0 &&
-         (uintptr_t)v_pages % 16 == 0;
+// 16-byte copies need 16-byte aligned tensors and rows of whole 16 bytes
+bool vec_ok(const void* x, const void* y, int D, int elem_bytes) {
+  return (D * elem_bytes) % 16 == 0 && (uintptr_t)x % 16 == 0 &&
+         (uintptr_t)y % 16 == 0;
+}
+
+template <typename T, bool kFused>
+int dispatch(const void* q, const void* k_new, const void* v_new, void* kp,
+             void* vp, const void* tables, const void* lens,
+             const void* widths, void* out, void* part, void* tickets, int B,
+             int W, const Geometry& geo, int per, void* stream) {
+  const Params<T> a{(const T*)q,      (const T*)k_new, (const T*)v_new,
+                    (T*)kp,           (T*)vp,          (const int*)tables,
+                    (const int*)lens, (const int*)widths, (T*)out,
+                    (float*)part,     (int*)tickets,   W,
+                    per,              0};
+  const int e = sizeof(T);
+  const bool vec = vec_ok(kp, vp, geo.D, e) &&
+                   (!kFused || vec_ok(k_new, v_new, geo.D, e));
+  const cudaStream_t st = (cudaStream_t)stream;
+  return vec ? launch<T, true, kFused>(a, B, geo, st)
+             : launch<T, false, kFused>(a, B, geo, st);
 }
 
 }  // namespace
 
-// bf16 != 0 selects __nv_bfloat16 storage, else float.
-extern "C" int paged_attention_launch(const void* q, const void* k_pages,
-                                      const void* v_pages,
-                                      const void* block_tables,
-                                      const void* ctx_lens, void* out, int B,
-                                      int H, int KV, int D, int page,
-                                      int n_max, int bf16, float scale,
-                                      void* stream) {
-  const Geometry geo{H, KV, D, page, n_max, scale,
-                     vec_ok(k_pages, v_pages, D, bf16 ? 2 : 4)};
-  if (bf16)
-    return launch_paged<__nv_bfloat16>(q, k_pages, v_pages, block_tables,
-                                       ctx_lens, out, B, geo,
-                                       (cudaStream_t)stream);
-  return launch_paged<float>(q, k_pages, v_pages, block_tables, ctx_lens, out,
-                             B, geo, (cudaStream_t)stream);
+// bf16 != 0 selects __nv_bfloat16 storage, else float.  `per` is the number
+// of (row, head) tasks per block, `part` the f32 partials and `tickets` the
+// zeroed counters of kernels/paged_attention.py's blocking (both may be
+// null where the table's capacity fits in one chunk).
+extern "C" int paged_attention_launch(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* block_tables, const void* ctx_lens, void* out, int B, int H,
+    int KV, int D, int page, int n_max, int bf16, float scale, int per,
+    void* part, void* tickets, void* stream) {
+  const Geometry geo{H, KV, D, page, n_max, scale};
+  auto run =
+      bf16 ? &dispatch<__nv_bfloat16, false> : &dispatch<float, false>;
+  return run(q, nullptr, nullptr, const_cast<void*>(k_pages),
+             const_cast<void*>(v_pages), block_tables, ctx_lens, nullptr, out,
+             part, tickets, B, 1, geo, per, stream);
 }
 
 extern "C" int fused_decode_attention_launch(
     const void* q, const void* k_new, const void* v_new, void* k_pages,
     void* v_pages, const void* block_tables, const void* positions, void* out,
     int B, int H, int KV, int D, int page, int n_max, int bf16, float scale,
-    void* stream) {
-  const Geometry geo{H, KV, D, page, n_max, scale,
-                     vec_ok(k_pages, v_pages, D, bf16 ? 2 : 4)};
-  if (bf16)
-    return launch_fused<__nv_bfloat16>(q, k_new, v_new, k_pages, v_pages,
-                                       block_tables, positions, out, B, geo,
-                                       (cudaStream_t)stream);
-  return launch_fused<float>(q, k_new, v_new, k_pages, v_pages, block_tables,
-                             positions, out, B, geo, (cudaStream_t)stream);
+    int per, void* part, void* tickets, void* stream) {
+  const Geometry geo{H, KV, D, page, n_max, scale};
+  auto run =
+      bf16 ? &dispatch<__nv_bfloat16, true> : &dispatch<float, true>;
+  return run(q, k_new, v_new, k_pages, v_pages, block_tables, positions,
+             nullptr, out, part, tickets, B, 1, geo, per, stream);
 }
 
 extern "C" int fused_verify_attention_launch(
     const void* q, const void* k_new, const void* v_new, void* k_pages,
     void* v_pages, const void* block_tables, const void* pos0,
     const void* widths, void* out, int B, int W, int H, int KV, int D,
-    int page, int n_max, int bf16, float scale, int per, void* stream) {
-  const int elem = bf16 ? 2 : 4;
-  const Geometry geo{H, KV, D, page, n_max, scale,
-                     vec_ok(k_pages, v_pages, D, elem) &&
-                         vec_ok(k_new, v_new, D, elem)};
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (bf16)
-    return geo.vec ? launch_verify<__nv_bfloat16, true>(
-                         q, k_new, v_new, k_pages, v_pages, block_tables,
-                         pos0, widths, out, B, W, per, geo, st)
-                   : launch_verify<__nv_bfloat16, false>(
-                         q, k_new, v_new, k_pages, v_pages, block_tables,
-                         pos0, widths, out, B, W, per, geo, st);
-  return geo.vec ? launch_verify<float, true>(q, k_new, v_new, k_pages,
-                                              v_pages, block_tables, pos0,
-                                              widths, out, B, W, per, geo,
-                                              st)
-                 : launch_verify<float, false>(q, k_new, v_new, k_pages,
-                                               v_pages, block_tables, pos0,
-                                               widths, out, B, W, per, geo,
-                                               st);
+    int page, int n_max, int bf16, float scale, int per, void* part,
+    void* tickets, void* stream) {
+  const Geometry geo{H, KV, D, page, n_max, scale};
+  auto run =
+      bf16 ? &dispatch<__nv_bfloat16, true> : &dispatch<float, true>;
+  return run(q, k_new, v_new, k_pages, v_pages, block_tables, pos0, widths,
+             out, part, tickets, B, W, geo, per, stream);
 }
 
-// Dynamic shared memory of a verify block of `per` tasks (the wrapper's
+// Dynamic shared memory of a block of `per` tasks (the wrapper's
 // verify_smem_bytes must agree).
 extern "C" int fused_verify_smem_bytes(int per, int D, int bf16) {
-  return (int)verify_smem_bytes(per, D, bf16 ? 2 : 4);
+  return (int)smem_bytes(per, D, bf16 ? 2 : 4);
 }
+
+// Tokens a block covers (the wrapper's CHUNK must agree).
+extern "C" int paged_chunk_tokens() { return kChunk; }

@@ -7,7 +7,9 @@ and flags, so an edited source is rebuilt and an unchanged one is reused.
 Nothing is built or loaded at import time: callers ask for a library when
 they are about to launch one of its kernels.  ``ptxas`` reports each
 kernel's registers, shared memory and spills (``-Xptxas -v``); the report
-is kept beside the library (``build_log``).
+is kept beside the library (``build_log``).  ``defines`` (``NAME=VALUE``
+strings, passed as ``-D``) build a variant of a source beside its default
+library, as a measurement sweeps a compile-time constant.
 """
 
 from __future__ import annotations
@@ -40,18 +42,22 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def library_path(name: str) -> Path:
+def _flags(defines: Sequence[str] = ()):
+    return [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+
+
+def library_path(name: str, defines: Sequence[str] = ()) -> Path:
     """Where the library built from ``csrc/<name>.cu`` lives."""
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    digest = hashlib.sha256(src + " ".join(_flags(defines)).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build(names: Sequence[str]) -> None:
+def build(names: Sequence[str], defines: Sequence[str] = ()) -> None:
     """Compile every named source that has no up-to-date library, all
     ``nvcc`` processes started together; raise with the compiler's output
     if any of them fails."""
-    todo = [(n, library_path(n)) for n in names]
+    todo = [(n, library_path(n, defines)) for n in names]
     todo = [(n, out) for n, out in todo if not out.exists()]
     if not todo:
         return
@@ -60,7 +66,8 @@ def build(names: Sequence[str]) -> None:
     procs = []
     for name, out in todo:
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *_flags(defines), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         procs.append((name, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     failed = []
@@ -75,18 +82,19 @@ def build(names: Sequence[str]) -> None:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
 
 
-def build_log(name: str) -> str:
+def build_log(name: str, defines: Sequence[str] = ()) -> str:
     """The compiler's output (with the ``ptxas`` report) of the build of
     ``csrc/<name>.cu``, or "" if it has not been built here."""
-    log = library_path(name).with_suffix(".log")
+    log = library_path(name, defines).with_suffix(".log")
     return log.read_text() if log.exists() else ""
 
 
-def load(name: str) -> ctypes.CDLL:
+def load(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    lib = _loaded.get(name)
+    path = library_path(name, defines)
+    lib = _loaded.get(str(path))
     if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(library_path(name)))
-        _loaded[name] = lib
+        build([name], defines)
+        lib = ctypes.CDLL(str(path))
+        _loaded[str(path)] = lib
     return lib

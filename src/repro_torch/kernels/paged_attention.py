@@ -18,11 +18,20 @@ version of the same function:
                               ``fused_verify_attention_ref``, W chained
                               ``fused_decode_attention_ref`` calls)
 
+The three kernels are one CUDA body: ``fused_decode_attention`` is it at
+one window row, ``paged_attention`` at one row with every token read from
+the pools, so their outputs are bitwise equal to each other and to the
+verify kernel's live rows at the same positions.  A block covers one chunk
+of ``CHUNK`` consecutive tokens; rows longer than a chunk are merged from
+f32 partials by the last block of their group (``blocking``).
+
 A wrapper checks its arguments, then takes the plain version for tensors
 on the CPU and launches the kernel for tensors on a CUDA device; there is
 no fallback from one to the other.  ``launches`` counts kernel launches.
 Unlike the reference's functional updates, every append here writes the
-page pools IN PLACE and returns the same tensors.
+page pools IN PLACE and returns the same tensors.  A launch reads nothing
+back to the host; the chunk counters it uses are per device, so the
+kernels of one device run on one stream at a time.
 """
 
 from __future__ import annotations
@@ -43,31 +52,45 @@ launches: Dict[str, int] = {"paged_attention": 0, "fused_decode_attention": 0,
 _DTYPES = (torch.float32, torch.bfloat16)
 _lib = None
 
-# the verify kernel's blocks: 8 warps, 64-token tiles in a two-stage ring,
-# at most this much dynamic shared memory (an H100 block's)
-VERIFY_WARPS = 8
+# the kernels' blocks: 8 warps, 64-token tiles in a two-stage ring, at
+# most this much dynamic shared memory (an H100 block's); a block covers
+# CHUNK consecutive tokens (the kernel's kChunk)
+WARPS = 8
 TILE = 64
 STAGES = 2
 MAX_SMEM = 232448
+CHUNK = 128
+
+# zeroed int32 counters per device, one per (lane, kv-head, task group) of
+# a launch; the last block of each group resets its counter to 0
+_tickets: Dict[torch.device, torch.Tensor] = {}
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry points of a built ``paged_attention`` library
+    and check that its chunk length is ``CHUNK``."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    tail = [i, p, p, p]                      # per, part, tickets, stream
+    lib.paged_attention_launch.argtypes = [p] * 6 + [i] * 7 + [f] + tail
+    lib.fused_decode_attention_launch.argtypes = [p] * 8 + [i] * 7 + [f] + tail
+    lib.fused_verify_attention_launch.argtypes = [p] * 9 + [i] * 8 + [f] + tail
+    lib.fused_verify_smem_bytes.argtypes = [i, i, i]
+    lib.paged_chunk_tokens.argtypes = []
+    for fn in ("paged_attention_launch", "fused_decode_attention_launch",
+               "fused_verify_attention_launch", "fused_verify_smem_bytes",
+               "paged_chunk_tokens"):
+        getattr(lib, fn).restype = i
+    if lib.paged_chunk_tokens() != CHUNK:
+        raise RuntimeError(f"paged_attention library covers "
+                           f"{lib.paged_chunk_tokens()} tokens a block, "
+                           f"the wrapper {CHUNK}")
+    return lib
 
 
 def _kernels() -> ctypes.CDLL:
     global _lib
     if _lib is None:
-        lib = build.load("paged_attention")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.paged_attention_launch.argtypes = (
-            [p] * 6 + [i] * 7 + [ctypes.c_float, p])
-        lib.paged_attention_launch.restype = i
-        lib.fused_decode_attention_launch.argtypes = (
-            [p] * 8 + [i] * 7 + [ctypes.c_float, p])
-        lib.fused_decode_attention_launch.restype = i
-        lib.fused_verify_attention_launch.argtypes = (
-            [p] * 9 + [i] * 8 + [ctypes.c_float, i, p])
-        lib.fused_verify_attention_launch.restype = i
-        lib.fused_verify_smem_bytes.argtypes = [i, i, i]
-        lib.fused_verify_smem_bytes.restype = i
-        _lib = lib
+        _lib = _bind(build.load("paged_attention"))
     return _lib
 
 
@@ -239,12 +262,85 @@ def _check(q, k_pages, v_pages, block_tables, lens, rows=(), widths=None):
         raise ValueError(f"no kernel for device {q.device}")
 
 
-def _geometry(q, k_pages, block_tables, scale):
-    """(H, KV, D, page, n_max, bf16, scale) of the C entry points."""
-    H, D = q.shape[-2], q.shape[-1]
+def _rows(D: int, elem: int):
+    """Bytes of one staged (K row, V row): D elements rounded up to 16
+    bytes, a K row padded by 16 more where that makes its length an odd
+    number of 16-byte units (``csrc/paged_attention.cu``, ``k_row_bytes``
+    / ``v_row_bytes``)."""
+    v = -(-D * elem // 16) * 16
+    return (v if (v // 16) % 2 else v + 16), v
+
+
+def verify_smem_bytes(per: int, D: int, elem: int) -> int:
+    """Dynamic shared memory of a block of ``per`` tasks at head dim D and
+    ``elem`` bytes per element: two ring stages of 64 K and V rows, then
+    each warp's 64 f32 probabilities, f32 q and acc rows and (m, l) per
+    task (the kernel's ``smem_bytes``)."""
+    kr, vr = _rows(D, elem)
+    return STAGES * TILE * (kr + vr) + 4 * (WARPS * TILE + 2 * per * D
+                                            + 2 * per)
+
+
+def chunk_starts(n_max: int, page: int):
+    """First token of each chunk a lane's table holds: 0, CHUNK, 2*CHUNK,
+    ... below its capacity n_max * page (one chunk at least)."""
+    return list(range(0, max(1, n_max * page), CHUNK))
+
+
+def blocking(W: int, G: int, D: int, elem: int, n_max: int, page: int):
+    """How the kernel splits a (lane, kv-head)'s work over blocks: its W*G
+    tasks (one window row of one query head each) into groups of ``per``,
+    enough for a block's 8 warps (G of them a warp each where G exceeds 8)
+    and no more, fewer where shared memory runs out; its table's capacity
+    into chunks of ``CHUNK`` tokens.  Returns (per, task groups, chunks,
+    shared memory bytes per block, partial bytes per (lane, kv-head)): a
+    block per (group, chunk), and f32 (m, l, acc[D]) per task and chunk
+    where there is more than one chunk.  Raises ValueError where not even
+    one task fits."""
+    tasks = W * G
+    per = min(tasks, WARPS * -(-G // WARPS))
+    while per > 1 and verify_smem_bytes(per, D, elem) > MAX_SMEM:
+        per -= 1
+    smem = verify_smem_bytes(per, D, elem)
+    if smem > MAX_SMEM:
+        raise ValueError(f"paged attention: head dim {D} needs {smem} B of "
+                         f"shared memory per block, more than {MAX_SMEM}")
+    chunks = len(chunk_starts(n_max, page))
+    partial = 4 * (D + 2) * tasks * chunks if chunks > 1 else 0
+    return per, -(-tasks // per), chunks, smem, partial
+
+
+def _launch(name, q, k_pages, block_tables, scale, ptrs):
+    """Launch kernel ``name`` (C entry point ``<name>_launch`` of the shared
+    body) on the tensors whose pointers are ``ptrs``, then B, for a verify
+    call W, the geometry, per, the partials, the counters and the stream.
+    Raises RuntimeError if CUDA refuses the launch."""
+    lead = tuple(q.shape[:-2])                  # (B,) or, to verify, (B, W)
+    B, W = lead[0], (lead[1] if len(lead) == 2 else 1)
+    H, D = q.shape[-2:]
     _, page, KV, _ = k_pages.shape
-    return (H, KV, D, page, block_tables.shape[1],
-            int(q.dtype == torch.bfloat16), float(scale or D ** -0.5))
+    n_max = block_tables.shape[1]
+    per, groups, chunks, _, partial = blocking(W, H // KV, D,
+                                               q.element_size(), n_max, page)
+    part = tickets = None
+    if chunks > 1:
+        part = torch.empty(B * KV * partial // 4, dtype=torch.float32,
+                           device=q.device)
+        need = B * KV * groups
+        tickets = _tickets.get(q.device)
+        if tickets is None or tickets.numel() < need:
+            tickets = torch.zeros(need, dtype=torch.int32, device=q.device)
+            _tickets[q.device] = tickets
+    with torch.cuda.device(q.device):
+        err = getattr(_kernels(), f"{name}_launch")(
+            *ptrs, *lead, H, KV, D, page, n_max,
+            int(q.dtype == torch.bfloat16), float(scale or D ** -0.5),
+            per, None if part is None else part.data_ptr(),
+            None if tickets is None else tickets.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    launches[name] += 1
 
 
 def paged_attention(q, k_pages, v_pages, block_tables, ctx_lens, *,
@@ -258,15 +354,9 @@ def paged_attention(q, k_pages, v_pages, block_tables, ctx_lens, *,
     out = torch.empty_like(q)
     if q.shape[0] == 0:
         return out
-    with torch.cuda.device(q.device):
-        err = _kernels().paged_attention_launch(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            block_tables.data_ptr(), ctx_lens.data_ptr(), out.data_ptr(),
-            q.shape[0], *_geometry(q, k_pages, block_tables, scale),
-            torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"paged_attention launch failed: CUDA error {err}")
-    launches["paged_attention"] += 1
+    _launch("paged_attention", q, k_pages, block_tables, scale,
+            (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+             block_tables.data_ptr(), ctx_lens.data_ptr(), out.data_ptr()))
     return out
 
 
@@ -289,56 +379,11 @@ def fused_decode_attention(q, k_new, v_new, k_pages, v_pages, block_tables,
     out = torch.empty_like(q)
     if q.shape[0] == 0:
         return out, k_pages, v_pages
-    with torch.cuda.device(q.device):
-        err = _kernels().fused_decode_attention_launch(
-            q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-            k_pages.data_ptr(), v_pages.data_ptr(), block_tables.data_ptr(),
-            positions.data_ptr(), out.data_ptr(),
-            q.shape[0], *_geometry(q, k_pages, block_tables, scale),
-            torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(
-            f"fused_decode_attention launch failed: CUDA error {err}")
-    launches["fused_decode_attention"] += 1
+    _launch("fused_decode_attention", q, k_pages, block_tables, scale,
+            (q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+             k_pages.data_ptr(), v_pages.data_ptr(), block_tables.data_ptr(),
+             positions.data_ptr(), out.data_ptr()))
     return out, k_pages, v_pages
-
-
-def _verify_rows(D: int, elem: int):
-    """Bytes of one staged (K row, V row) of the verify kernel: D elements
-    rounded up to 16 bytes, a K row padded by 16 more where that makes its
-    length an odd number of 16-byte units (``csrc/paged_attention.cu``,
-    ``verify_k_row`` / ``verify_v_row``)."""
-    v = -(-D * elem // 16) * 16
-    return (v if (v // 16) % 2 else v + 16), v
-
-
-def verify_smem_bytes(per: int, D: int, elem: int) -> int:
-    """Dynamic shared memory of a verify block of ``per`` tasks at head dim
-    D and ``elem`` bytes per element: two ring stages of 64 K and V rows,
-    then f32 q and acc rows and (m, l) per task and each warp's 64
-    probabilities (the kernel's ``verify_smem_bytes``)."""
-    kr, vr = _verify_rows(D, elem)
-    return STAGES * TILE * (kr + vr) + 4 * (2 * per * D + 2 * per
-                                            + VERIFY_WARPS * TILE)
-
-
-def verify_blocking(W: int, G: int, D: int, elem: int):
-    """How the verify kernel splits a (lane, kv-head)'s W*G tasks (one
-    window row of one query head each) over blocks: ``per`` tasks per
-    block, enough for a block's 8 warps (G of them a warp each where G
-    exceeds 8) and no more, fewer where shared memory runs out.  Returns
-    (per, blocks per (lane, kv-head), shared memory bytes); raises
-    ValueError where not even one task fits."""
-    tasks = W * G
-    per = min(tasks, VERIFY_WARPS * -(-G // VERIFY_WARPS))
-    while per > 1 and verify_smem_bytes(per, D, elem) > MAX_SMEM:
-        per -= 1
-    smem = verify_smem_bytes(per, D, elem)
-    if smem > MAX_SMEM:
-        raise ValueError(f"fused_verify_attention: head dim {D} needs "
-                         f"{smem} B of shared memory per block, more than "
-                         f"{MAX_SMEM}")
-    return per, -(-tasks // per), smem
 
 
 def fused_verify_attention(q, k_new, v_new, k_pages, v_pages, block_tables,
@@ -361,20 +406,10 @@ def fused_verify_attention(q, k_new, v_new, k_pages, v_pages, block_tables,
                                           block_tables, pos0, widths,
                                           scale=scale)
     out = torch.empty_like(q)
-    if q.numel() == 0:
-        return out, k_pages, v_pages
-    B, W, H, D = q.shape
-    per, _, _ = verify_blocking(W, H // k_pages.shape[2], D,
-                                q.element_size())
-    with torch.cuda.device(q.device):
-        err = _kernels().fused_verify_attention_launch(
-            q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-            k_pages.data_ptr(), v_pages.data_ptr(), block_tables.data_ptr(),
-            pos0.data_ptr(), widths.data_ptr(), out.data_ptr(), B, W,
-            *_geometry(q, k_pages, block_tables, scale), per,
-            torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(
-            f"fused_verify_attention launch failed: CUDA error {err}")
-    launches["fused_verify_attention"] += 1
+    if q.numel():
+        _launch("fused_verify_attention", q, k_pages, block_tables, scale,
+                (q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+                 k_pages.data_ptr(), v_pages.data_ptr(),
+                 block_tables.data_ptr(), pos0.data_ptr(), widths.data_ptr(),
+                 out.data_ptr()))
     return out, k_pages, v_pages

@@ -183,10 +183,11 @@ class Model:
 
     # ------------------------------------------------------------------
     def supports_paged(self) -> bool:
-        """Paged serving covers pure-attention stacks with rope or no
-        positional encoding and no modality frontend."""
+        """Paged serving covers pure-attention stacks with mlp or no FFNs
+        (MoE is not ported), rope or no positional encoding and no
+        modality frontend."""
         cfg = self.cfg
-        return (all(m == "attn" for m, _ in
+        return (all(m == "attn" and f in ("mlp", "none") for m, f in
                     cfg.prefix_pattern + cfg.unit_pattern)
                 and cfg.positional in ("rope", "none")
                 and cfg.frontend == "none")

@@ -99,7 +99,8 @@ class PagedTorchBackend(Backend):
         if not self.model.supports_paged():
             raise ValueError(
                 f"{arch}: paged serving needs a pure-attention stack with "
-                "rope/none positions (recurrent mixers have no paged state)")
+                "mlp/none FFNs and rope/none positions (recurrent mixers have "
+                "no paged state; MoE is not ported)")
         self.sampler = Sampler(temperature=temperature, top_k=top_k,
                                seed=seed)
         self.drafter = drafter if drafter is not None else NgramDrafter()

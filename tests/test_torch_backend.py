@@ -10,6 +10,7 @@ import hashlib
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)          # parallel test workers share the CPU
 
 import jax  # noqa: E402
 import numpy as np  # noqa: E402

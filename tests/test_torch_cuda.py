@@ -1,8 +1,10 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
 version (the verify kernel also bitwise against chained decode-kernel
-launches), the reduced model's token streams equal across attention
-modes, decode horizons and speculation, the flash kernel's causal mask,
-and the reduced full-sequence forward on the card equal to the CPU's.
+launches, the attend-only kernel bitwise the fused one, a lane alone
+bitwise among 64, contexts across the paged kernels' chunk edges), the
+reduced model's token streams equal across attention modes, decode
+horizons and speculation, the flash kernel's causal mask, and the reduced
+full-sequence forward on the card equal to the CPU's.
 Marked ``cuda``; skips without a GPU.  Run on the GPU machine with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -95,6 +97,93 @@ def test_kernels_match_plain_versions_beside_padding_lanes(cuda):
     assert torch.equal(k1[:-1], k2[:-1]) and torch.equal(v1[:-1], v2[:-1])
 
 
+def _chunk_ctxs(C, cap):
+    """Contexts around the kernels' chunk edges, up to a capacity."""
+    return sorted({min(x, cap) for x in (1, C - 1, C, C + 1, 2 * C - 1,
+                                         2 * C + 1, 3 * C, cap - 1, cap)})
+
+
+@pytest.mark.parametrize("dtype,atol,H,KV,D", [
+    (torch.bfloat16, 2e-2, 32, 4, 64),       # tinyllama
+    (torch.float32, 1e-5, 32, 4, 64),
+    (torch.bfloat16, 2e-2, 24, 8, 128),      # G = 3 (minitron widths)
+    (torch.float32, 1e-5, 24, 8, 128),
+    (torch.bfloat16, 2e-2, 56, 8, 128),      # G = 7 (yi widths)
+    (torch.float32, 1e-5, 56, 8, 128),
+])
+def test_decode_kernels_across_chunk_edges(cuda, dtype, atol, H, KV, D):
+    """Contexts across the chunk edges up to the table's capacity (4
+    chunks): both decode kernels within ``atol`` of their plain versions
+    (and one bf16 ulp in bf16), the fused kernel's pools equal, and
+    ``paged_attention`` bitwise ``fused_decode_attention`` on the pools
+    that one wrote."""
+    from repro_torch.kernels import paged_attention as pa
+    page = 16
+    ctxs = _chunk_ctxs(pa.CHUNK, 4 * pa.CHUNK)
+    B, n_max = len(ctxs), 4 * pa.CHUNK // page
+    g = torch.Generator(device=cuda).manual_seed(3)
+    P = B * n_max + 1
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=cuda).to(dtype)
+
+    q, kn, vn = rnd(B, H, D), rnd(B, KV, D), rnd(B, KV, D)
+    kp, vp = rnd(P, page, KV, D), rnd(P, page, KV, D)
+    tab = torch.randperm(P - 1, generator=g, device=cuda)
+    tab = tab.reshape(B, n_max).to(torch.int32)
+    ctx = torch.tensor(ctxs, dtype=torch.int32, device=cuda)
+    out = pa.paged_attention(q, kp, vp, tab, ctx)
+    ref = pa.paged_attention_ref(q, kp, vp, tab, ctx)
+    k1, v1, k2, v2 = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+    o1, k1, v1 = pa.fused_decode_attention(q, kn, vn, k1, v1, tab, ctx - 1)
+    o2, k2, v2 = pa.fused_decode_attention_ref(q, kn, vn, k2, v2, tab,
+                                               ctx - 1)
+    again = pa.paged_attention(q, k1, v1, tab, ctx)
+    torch.cuda.synchronize()
+    for got, want in ((out, ref), (o1, o2)):
+        diff = (got.float() - want.float()).abs()
+        assert diff.max().item() <= atol
+        if dtype == torch.bfloat16:
+            assert bool((diff <= 2.0 ** -7 * want.float().abs()
+                         + 1e-5).all())
+    assert torch.equal(k1[:-1], k2[:-1]) and torch.equal(v1[:-1], v2[:-1])
+    assert torch.equal(again, o1)
+
+
+def test_lane_alone_equals_lane_among_64(cuda):
+    """Each live lane of a 64-lane serving call (8 live at contexts across
+    chunk edges, 56 padding lanes on the all-scrap table) bitwise equal to
+    the same lane called alone, for both decode kernels."""
+    from repro_torch.kernels import paged_attention as pa
+    B, H, KV, D, page, n_max = 64, 32, 4, 64, 16, 16
+    ctxs = _chunk_ctxs(pa.CHUNK, n_max * page)[:8]
+    live = len(ctxs)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    P = live * n_max + 1
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=cuda).to(torch.bfloat16)
+
+    q, kn, vn = rnd(B, H, D), rnd(B, KV, D), rnd(B, KV, D)
+    kp, vp = rnd(P, page, KV, D), rnd(P, page, KV, D)
+    tab = torch.full((B, n_max), P - 1, dtype=torch.int32, device=cuda)
+    tab[:live] = torch.arange(live * n_max, dtype=torch.int32,
+                              device=cuda).reshape(live, n_max)
+    ctx = torch.ones(B, dtype=torch.int32, device=cuda)
+    ctx[:live] = torch.tensor(ctxs, dtype=torch.int32, device=cuda)
+    att = pa.paged_attention(q, kp, vp, tab, ctx)
+    fused, _, _ = pa.fused_decode_attention(q, kn, vn, kp.clone(),
+                                            vp.clone(), tab, ctx - 1)
+    for i in range(live):
+        one = slice(i, i + 1)
+        a1 = pa.paged_attention(q[one], kp, vp, tab[one], ctx[one])
+        f1, _, _ = pa.fused_decode_attention(q[one], kn[one], vn[one],
+                                             kp.clone(), vp.clone(),
+                                             tab[one], ctx[one] - 1)
+        torch.cuda.synchronize()
+        assert torch.equal(a1[0], att[i]) and torch.equal(f1[0], fused[i])
+
+
 @pytest.mark.parametrize("dtype,atol,B,W,H,KV,D,page,ctxs,widths,lanes", [
     (torch.bfloat16, 2e-2, 4, 5, 32, 4, 64, 16, [1, 16, 17, 300],
      [5, 1, 3, 4], None),
@@ -116,6 +205,14 @@ def test_kernels_match_plain_versions_beside_padding_lanes(cuda):
     # on the all-scrap table
     (torch.bfloat16, 2e-2, 8, 5, 32, 4, 64, 16,
      [1, 15, 16, 17, 32, 33, 48, 52], [5, 2, 5, 1, 4, 5, 3, 5], 64),
+    # windows straddling 64- and 128-token edges (whatever the chunk
+    # length of 64, 128 or 256), G = 3 and G = 7 at D = 128
+    (torch.bfloat16, 2e-2, 4, 5, 32, 4, 64, 16, [62, 126, 254, 508],
+     [5, 5, 5, 5], None),
+    (torch.bfloat16, 2e-2, 3, 9, 32, 4, 64, 16, [120, 250, 380],
+     [9, 9, 9], None),
+    (torch.float32, 1e-5, 2, 4, 24, 8, 128, 16, [127, 257], [4, 3], None),
+    (torch.bfloat16, 2e-2, 2, 3, 56, 8, 128, 16, [128, 382], [3, 3], None),
 ])
 def test_verify_kernel_matches_plain_and_chained_decode(
         cuda, dtype, atol, B, W, H, KV, D, page, ctxs, widths, lanes):

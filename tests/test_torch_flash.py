@@ -9,6 +9,7 @@ which the Pallas kernel cannot take.  Tolerances are the reference's own
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)          # parallel test workers share the CPU
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402

@@ -12,6 +12,7 @@ import dataclasses
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)          # parallel test workers share the CPU
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402

@@ -8,6 +8,7 @@ write-backs)."""
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)          # parallel test workers share the CPU
 
 try:  # noqa: E402
     from hypothesis import given, settings, strategies as st

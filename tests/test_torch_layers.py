@@ -4,6 +4,7 @@
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)          # parallel test workers share the CPU
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402

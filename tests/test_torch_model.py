@@ -8,6 +8,7 @@ import functools
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)          # parallel test workers share the CPU
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -114,3 +115,37 @@ def test_prefill_then_decode_matches_reference(models, fused):
         _pools_match(tpages, jpages)
         toks = np.argmax(np.asarray(lj), axis=-1).astype(np.int32)[:, None]
         pos = pos + 1
+
+
+@pytest.mark.parametrize("ffn,paged", [("mlp", True), ("none", True),
+                                       ("moe", False)])
+def test_supports_paged_agrees_with_layer_apply_paged(ffn, paged,
+                                                     monkeypatch):
+    """A hand-built attn stack: the predicate says True exactly where
+    ``layer_apply_paged`` takes the layer (MoE is not ported, so an
+    attn+moe stack is refused by both), and ``PagedTorchBackend`` refuses
+    what the predicate refuses."""
+    import dataclasses
+
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.models.transformer import layer_apply_paged
+    from repro_torch.serving import torch_backend
+
+    cfg = ModelConfig(name="attn-" + ffn, family="dense", num_layers=2,
+                      d_model=32, num_heads=4, num_kv_heads=2, d_ff=64,
+                      vocab_size=64, unit_pattern=(("attn", ffn),),
+                      num_experts=4 if ffn == "moe" else 0,
+                      top_k=2 if ffn == "moe" else 0,
+                      d_ff_expert=32 if ffn == "moe" else 0)
+    assert build_model(cfg).supports_paged() is paged
+    if not paged:
+        with pytest.raises(ValueError, match="FFN"):
+            layer_apply_paged(torch.zeros(1, 1, 32), {}, "attn", ffn, cfg,
+                              "decode", None, None, None)
+        monkeypatch.setattr(torch_backend, "get_config", lambda name: cfg)
+        with pytest.raises(ValueError, match="MoE"):
+            torch_backend.PagedTorchBackend(arch=cfg.name, reduced=False,
+                                            device="cpu")
+    # the predicate looks at the FFN only where the mixer is attn
+    mla = dataclasses.replace(cfg, unit_pattern=(("mla", "mlp"),))
+    assert not build_model(mla).supports_paged()

@@ -13,6 +13,7 @@ import hashlib
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)          # parallel test workers share the CPU
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -201,31 +202,31 @@ def test_fused_verify_plain_matches_pallas(B, W, H, KV, D, page, n_max,
 @pytest.mark.parametrize("D", [16, 64, 128])
 @pytest.mark.parametrize("elem", [2, 4])
 def test_verify_blocking_fits_and_covers_every_row(D, elem):
-    """The verify kernel's blocking, for every window the wrapper admits (W
-    up to 9, speculation depth 8) and every group size from MHA to MQA at
-    32 heads: shared memory within a block's limit and as the formula says,
-    and the blocks of a (lane, kv-head) cover each (row, head) task once,
-    none of them empty."""
+    """The kernels' blocking, for every window the wrapper admits (W up to
+    9, speculation depth 8) and every group size from MHA to MQA at 32
+    heads: shared memory within a block's limit and as the formula says,
+    and the task groups of a (lane, kv-head) cover each (row, head) task
+    once, none of them empty."""
     for W in range(1, 10):
         for G in (1, 2, 3, 4, 6, 8, 16, 32):
-            per, blocks, smem = tpa.verify_blocking(W, G, D, elem)
+            per, groups, _, smem, _ = tpa.blocking(W, G, D, elem, 16, 16)
             assert smem == tpa.verify_smem_bytes(per, D, elem)
             assert smem <= tpa.MAX_SMEM
             tasks = [range(z * per, min((z + 1) * per, W * G))
-                     for z in range(blocks)]
+                     for z in range(groups)]
             assert all(len(t) > 0 for t in tasks)
             covered = sorted(i for t in tasks for i in t)
             assert covered == list(range(W * G))
             assert {i // G for i in covered} == set(range(W))
-    # the serving call: G = 8, so each window row runs in a block of its own
-    assert tpa.verify_blocking(5, 8, 64, 2)[:2] == (8, 5)
+    # the serving call: G = 8, so each window row runs in a group of its own
+    assert tpa.blocking(5, 8, 64, 2, 16, 16)[:2] == (8, 5)
 
 
 def test_verify_blocking_refuses_what_does_not_fit():
     """A head dim whose two ring stages alone exceed a block's shared
     memory raises instead of launching."""
     with pytest.raises(ValueError, match="shared memory"):
-        tpa.verify_blocking(5, 8, 512, 4)
+        tpa.blocking(5, 8, 512, 4, 16, 16)
 
 
 BAD_VERIFY = {
