@@ -22,8 +22,15 @@ decode and verify forwards at contexts 48 and 240 and the temperature > 0
 sampler, serves
 speculative decoding (vllm and gmg, temperature 0 and 0.8; n-gram drafts
 and drafts replayed from the plain run, which are accepted) with token
-streams equal to plain decoding, and times the kernels with CUDA events
-(the paged kernels also at chunk lengths 64, 128 and 256).
+streams equal to plain decoding, serves the same workload on fleets of
+full-width replicas through ``run_cluster`` (1 prefill + 1 decode under
+the disagg router, with live KV migration, and 2 replicas under
+slo-margin; merged streams equal to the colocated run's), holds a
+migration's export/import bitwise (live and swapped out, bf16 pages as
+int16 patterns on the host) beside ``migrate_time``'s price for it,
+checks the paged kernels' ticket counters are zero after the fleets, and
+times the kernels with CUDA events (the paged kernels also at chunk
+lengths 64, 128 and 256).
 Then the full-sequence forward: the flash-attention kernel against its
 plain version (the reference's sweep, ragged S, GQA groups of 3, MLA head
 dims, every head-dim pair of the bf16 tensor-core body) and its causal
@@ -100,6 +107,9 @@ WORKLOAD = dict(rate=1.5, duration=6.0, seed=0, mix=(2, 1, 1), prompt_cap=40,
                 output_cap=12, slo_scale=20.0)
 # the paged kernels' chunk lengths (tokens a block covers) timed side by side
 CHUNKS = (64, 128, 256)
+# the backend of every serving run, a fleet's replicas included
+SERVE_KW = dict(arch="tinyllama-1.1b", reduced=False, num_blocks=512, page=16,
+                max_len=256, seed=0)
 # prompt of every third request in the speculative runs: random prompts
 # give the n-gram drafter nothing to match
 MOTIF = [11, 42, 7, 99]
@@ -151,12 +161,6 @@ def replay_of(be, prompts):
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
-
-
-def stream_digest(backend) -> str:
-    """Order-independent digest of every request's generated tokens."""
-    streams = sorted((rid, tuple(t)) for rid, t in backend.generated.items())
-    return hashlib.sha256(repr(streams).encode()).hexdigest()[:16]
 
 
 def case(torch, B, H, KV, D, page, ctxs, dtype, seed):
@@ -623,6 +627,7 @@ def serve(torch, pa, fused=True, decode_steps=1, scheduler="gmg", spec=0,
     engine's draft-depth ceiling; temperature > 0 samples with top_k 50;
     ``prompts`` is ``ExperimentSpec.prompts``; ``drafter`` replaces the
     n-gram drafter."""
+    from repro_torch.examples.quickstart import _stream_digest
     from repro_torch.obs import MetricsRegistry
     from repro_torch.serving.engine import EngineConfig
     from repro_torch.serving.run import (BackendSpec, ExperimentSpec,
@@ -630,9 +635,7 @@ def serve(torch, pa, fused=True, decode_steps=1, scheduler="gmg", spec=0,
     from repro_torch.serving.torch_backend import PagedTorchBackend
     from repro_torch.serving.workload import WorkloadSpec
 
-    be = PagedTorchBackend(arch="tinyllama-1.1b", reduced=False,
-                           num_blocks=512, page=16, max_len=256, seed=0,
-                           fused=fused, temperature=temperature,
+    be = PagedTorchBackend(**SERVE_KW, fused=fused, temperature=temperature,
                            top_k=50 if temperature > 0 else 0,
                            drafter=drafter)
     check(be.cfg.d_model == 2048 and be.cfg.num_layers == 22
@@ -650,7 +653,7 @@ def serve(torch, pa, fused=True, decode_steps=1, scheduler="gmg", spec=0,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(pa.launches)
-    digest = stream_digest(be)
+    digest = _stream_digest(be)
     tokens = [t for toks in be.generated.values() for t in toks]
     how = ((" (motif prompts)" if prompts else "")
            + (f" ({type(drafter).__name__})" if drafter else ""))
@@ -671,6 +674,153 @@ def serve(torch, pa, fused=True, decode_steps=1, scheduler="gmg", spec=0,
     check(summ.goodput_frac > 0, "zero goodput")
     check(all(0 <= t < be.cfg.vocab_size for t in tokens), "token range")
     return be, summ, counts, digest
+
+
+def fleet_run(torch, pa, cluster):
+    """Full-width tinyllama-1.1b on a fleet through ``run_cluster`` under
+    gmg: each replica builds its own backend on the card (``SERVE_KW``)
+    and the replicas step in turn on the current stream.  Kernel launch
+    counts are zeroed just before the run and read just after it.  Prints
+    one line for the fleet and one per replica."""
+    from repro_torch.examples.quickstart import _stream_digest
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.serving.engine import EngineConfig
+    from repro_torch.serving.run import (BackendSpec, ExperimentSpec,
+                                         TelemetrySpec, run_cluster)
+    from repro_torch.serving.workload import WorkloadSpec
+
+    sink, obs = [], MetricsRegistry()
+    for k in pa.launches:
+        pa.launches[k] = 0
+    t0 = time.perf_counter()
+    fs = run_cluster(ExperimentSpec(
+        scheduler="gmg", workload=WorkloadSpec(**WORKLOAD),
+        engine=EngineConfig(max_batch=8, prefill_budget=32),
+        backend=BackendSpec(kind="torch", kwargs=dict(SERVE_KW), sink=sink),
+        cluster=cluster, telemetry=TelemetrySpec(obs=obs)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(pa.launches)
+    digest = _stream_digest(sink)
+    check(len(sink) == len(fs.per_replica) and all(
+        be.device.type == "cuda" and be.cfg.d_model == 2048
+        and be.cfg.num_layers == 22 and be.cfg.dtype == "bfloat16"
+        for be in sink), "every replica is full-width tinyllama on the card")
+    label = cluster.router + (f" {'+'.join(cluster.roles)}" if cluster.roles
+                              else f" x{cluster.n_replicas}")
+    print(f"  {label}: finished {fs.fleet.n_finished}, goodput "
+          f"{fs.goodput_frac:.3f}, migrated {fs.fleet.migrated_in}, "
+          f"{fs.fleet.throughput_tok_s:.1f} tok/s (engine clock), makespan "
+          f"{fs.fleet.makespan:.3f} s, {wall:.2f} s wall (backends built "
+          f"included), launches {counts}, digest {digest}")
+    for rid, s in sorted(fs.per_replica.items()):
+        role = cluster.roles[rid] if cluster.roles else "mixed"
+        print(f"    replica {rid} ({role}): routed {fs.routed.get(rid, 0)}, "
+              f"migrated in {s.migrated_in} out {s.migrated_out}, finished "
+              f"{s.n_finished}, device "
+              f"{obs.value_of('torch_device_seconds_total', replica=rid):.3f}"
+              f" s, host "
+              f"{obs.value_of('torch_host_seconds_total', replica=rid):.3f} s")
+    check(fs.fleet.n_finished > 0 and fs.goodput_frac > 0,
+          f"{label}: no goodput")
+    check(counts["fused_decode_attention"] > 0,
+          f"{label}: fused_decode_attention never launched")
+    return fs, sink, digest
+
+
+def migration_round_trip(torch, a, b) -> None:
+    """Prefill a request on backend ``a``, export its pages and import them
+    into ``b`` at other page indices: bitwise equal, bf16 crossing the host
+    as int16 patterns.  Then a swapped-out request (exported with an empty
+    table, parked on ``b``, swapped in).  Prints the wall time of the
+    export and the import beside the price ``migrate_time`` puts on the
+    same tokens."""
+    from repro_torch.models.convert import tree_leaves
+    from repro_torch.serving.request import Request, SLOSpec
+
+    def prefill(be, rid, table):
+        r = Request(rid=rid, app="chatbot", arrival=0.0, prompt_len=40,
+                    true_output_len=12, slo=SLOSpec("throughput", ttlt=60.0))
+        be.begin_step()
+        be.prefill_chunk(r, 0, r.prompt_len, table)
+        be.step_time(r.prompt_len, [])
+        return r
+
+    def equal(ta, tb):
+        return all(torch.equal(x[:, ta] if x.ndim == 5 else x[ta],
+                               y[:, tb] if y.ndim == 5 else y[tb])
+                   for x, y in zip(tree_leaves(a.pages), tree_leaves(b.pages)))
+
+    for be in (a, b):
+        be.reset_run_state()
+    n = b.num_blocks
+    ta, tb = [0, 1, 2], [n - 1, 7, n // 2]
+    r = prefill(a, 10**6, ta)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    payload = a.kv_export_pages(r.rid, ta)
+    t1 = time.perf_counter()
+    b.kv_import_pages(r.rid, payload, tb)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    leaves = tree_leaves(payload["pages"])
+    nbytes = sum(x.nbytes for x in leaves)
+    priced = a.migrate_time(r.prompt_len * a.kv_bytes)
+    check(all(x.dtype.name == "int16" for x in leaves),
+          "bf16 pages cross the host as int16 patterns")
+    check(equal(ta, tb), "migrated pages differ from the source's")
+    check(b.prompt_ids(r).tolist() == payload["prompt"].tolist(),
+          "the prompt did not travel with the pages")
+    ts, tb2 = [3, 4, 5], [n - 2, 9, n // 4]
+    r2 = prefill(a, 10**6 + 1, ts)
+    a.kv_swap_out(r2.rid, ts, r2.prompt_len)
+    b.kv_import_pages(r2.rid, a.kv_export_pages(r2.rid, []), None)
+    b.kv_swap_in(r2.rid, tb2)
+    check(equal(ts, tb2), "a swapped-out payload differs after kv_swap_in")
+    print(f"  migration round trip (live and swapped): bitwise; "
+          f"{r.prompt_len} tokens priced {priced * 1e3:.4f} ms "
+          f"(migrate_time: {r.prompt_len} x {a.kv_bytes:.0f} B at "
+          f"{a.interconnect_bw / 1e9:g} GB/s); measured export "
+          f"{(t1 - t0) * 1e3:.3f} ms + import {(t2 - t1) * 1e3:.3f} ms wall "
+          f"for {nbytes} B of pages ({len(ta)} pages x {len(leaves)} pools)")
+    for be in (a, b):
+        be.reset_run_state()
+
+
+def fleet(torch, pa, colocated: str, card: str) -> None:
+    """The multi-replica phase: a 1 prefill + 1 decode fleet under the
+    disagg router (live KV migration) and 2 replicas under slo-margin, each
+    with merged token streams equal to the colocated gmg run's
+    (``colocated``), the migration round trip on two of the replicas'
+    backends, and the paged kernels' ticket counters at zero afterwards."""
+    from repro_torch.serving.run import ClusterSpec
+
+    t0 = time.perf_counter()
+    print("fleet: tinyllama-1.1b replicas (full width, bf16, random weights "
+          "from seed 0), gmg:")
+    di, sink, dig_d = fleet_run(torch, pa, ClusterSpec(
+        router="disagg", roles=["prefill", "decode"]))
+    del sink
+    torch.cuda.empty_cache()
+    check(di.fleet.migrated_in > 0, "the disaggregated fleet migrated no "
+          "request (the disagg router priced every migration out)")
+    sm, sink, dig_s = fleet_run(torch, pa, ClusterSpec(
+        router="slo-margin", n_replicas=2))
+    check(min(sm.routed.values()) > 0,
+          f"slo-margin routed to one replica only: {sm.routed}")
+    print(f"  digests: disagg {dig_d}, slo-margin {dig_s}, colocated "
+          f"{colocated}")
+    check(dig_d == colocated, "the disaggregated fleet changed the token "
+          "streams")
+    check(dig_s == colocated, "the routed fleet changed the token streams")
+    migration_round_trip(torch, *sink)
+    del sink
+    torch.cuda.empty_cache()
+    check(bool(pa._tickets) and all(int(t.abs().sum()) == 0
+                                    for t in pa._tickets.values()),
+          "the paged kernels' ticket counters are not zero after the fleet")
+    print(f"  ticket counters zero on {len(pa._tickets)} device(s); fleet "
+          f"phase {time.perf_counter() - t0:.2f} s wall ({card})")
 
 
 def _pow2(n: int, lo: int) -> int:
@@ -1382,6 +1532,9 @@ def main() -> int:
               f"spec {depth}, decode_steps {n} changed the token streams at "
               f"temperature {temperature}")
     check(dig_g4 == dig_f1, "spec 4 changed the gmg token streams")
+
+    # 4c. the fleet: disaggregated and routed replicas on the card
+    fleet(torch, pa, dig_f1, card)
 
     # 5. times at the main path's shapes: B=8 lanes at ctx 512, bf16
     flush = torch.empty(32 * 2**20, dtype=torch.float32, device="cuda")

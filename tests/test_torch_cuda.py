@@ -4,7 +4,9 @@ launches, the attend-only kernel bitwise the fused one, a lane alone
 bitwise among 64, contexts across the paged kernels' chunk edges), the
 reduced model's token streams equal across attention modes, decode
 horizons and speculation, the flash kernel's causal mask, and the reduced
-full-sequence forward on the card equal to the CPU's.
+full-sequence forward on the card equal to the CPU's, a 2-replica
+reduced fleet (disaggregated and routed) with merged streams equal to one
+replica's, and the migration round trip bitwise.
 Marked ``cuda``; skips without a GPU.  Run on the GPU machine with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -443,3 +445,85 @@ def test_reduced_fullseq_forward_on_card_matches_cpu(cuda, arch):
         outs.append(logits.cpu())
     assert (outs[0] - outs[1]).abs().max().item() <= 1e-4
     assert (outs[1] - ref[:, S - 1]).abs().max().item() <= 2e-2
+
+
+_FLEET_SPEC = dict(rate=1.5, duration=6.0, seed=0, mix=(2, 1, 1),
+                   prompt_cap=40, output_cap=12, slo_scale=20.0)
+
+
+@pytest.mark.parametrize("cluster", [
+    dict(router="disagg", roles=["prefill", "decode"]),
+    dict(router="slo-margin", n_replicas=2)], ids=["disagg", "slo-margin"])
+def test_reduced_fleet_on_card_streams_equal_one_replica(cuda, cluster):
+    """A 2-replica reduced fleet on the card (each replica builds its own
+    backend from the same seed): merged streams equal one replica's, with
+    migrations under disagg and both replicas routed under slo-margin."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.serving.engine import EngineConfig
+    from repro_torch.serving.run import (BackendSpec, ClusterSpec,
+                                         ExperimentSpec, run, run_cluster)
+    from repro_torch.serving.torch_backend import PagedTorchBackend
+    from repro_torch.serving.workload import WorkloadSpec
+
+    kw = dict(num_blocks=64, page=16, max_len=128, seed=0)
+    engine = EngineConfig(max_batch=8, prefill_budget=32)
+
+    def merged(sink):
+        return sorted((rid, tuple(t)) for be in sink
+                      for rid, t in be.generated.items())
+
+    one = PagedTorchBackend(device=cuda, **kw)
+    run(ExperimentSpec(scheduler="tempo", workload=WorkloadSpec(**_FLEET_SPEC),
+                       engine=engine, backend=BackendSpec(kind=one),
+                       warmup=64))
+    sink = []
+    before = pa.launches["fused_decode_attention"]
+    f = run_cluster(ExperimentSpec(
+        scheduler="tempo", workload=WorkloadSpec(**_FLEET_SPEC),
+        engine=engine, warmup=64, cluster=ClusterSpec(**cluster),
+        backend=BackendSpec(kind="torch", kwargs=kw, sink=sink)))
+    assert pa.launches["fused_decode_attention"] > before
+    assert {be.device.type for be in sink} == {"cuda"}
+    if cluster["router"] == "disagg":
+        assert f.fleet.migrated_in > 0
+    else:
+        assert min(f.routed.values()) > 0
+    assert merged(sink) == merged([one])
+    assert all(int(t.abs().sum()) == 0 for t in pa._tickets.values())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_migration_round_trip_on_card(cuda, dtype):
+    """Pages exported from one backend on the card and imported into
+    another at other indices are bitwise equal, live and swapped; bf16
+    crosses the host as its int16 patterns."""
+    import numpy as np
+
+    from repro_torch.models.convert import tree_leaves
+    from repro_torch.serving.torch_backend import PagedTorchBackend
+
+    a, b = (PagedTorchBackend(num_blocks=64, page=16, max_len=128, seed=0,
+                              device=cuda) for _ in range(2))
+    g = torch.Generator(device=cuda).manual_seed(0)
+    for be in (a, b):
+        for leaf in tree_leaves(be.pages):
+            leaf.data = torch.randn(leaf.shape, generator=g, device=cuda,
+                                    dtype=torch.float32).to(dtype)
+
+    def pages(be, table):
+        return [leaf[:, table] if leaf.ndim == 5 else leaf[table]
+                for leaf in tree_leaves(be.pages)]
+
+    ta, tb = [0, 1, 2], [40, 9, 33]
+    payload = a.kv_export_pages(7, ta)
+    want = np.int16 if dtype == torch.bfloat16 else np.float32
+    assert {x.dtype for x in tree_leaves(payload["pages"])} == \
+        {np.dtype(want)}
+    b.kv_import_pages(7, payload, tb)
+    assert all(torch.equal(x, y) for x, y in zip(pages(a, ta), pages(b, tb)))
+    ts, tb2 = [3, 4], [60, 12]
+    a.kv_swap_out(8, ts, 32)
+    b.kv_import_pages(8, a.kv_export_pages(8, []), None)
+    b.kv_swap_in(8, tb2)
+    assert all(torch.equal(x, y) for x, y in zip(pages(a, ts),
+                                                  pages(b, tb2)))

@@ -28,6 +28,8 @@ VERBATIM = [
     "serving/request.py", "serving/kvcache.py", "serving/workload.py",
     "serving/metrics.py", "serving/engine.py", "serving/drafter.py",
     "configs/base.py", "configs/tinyllama_1p1b.py", "configs/minicpm3_4b.py",
+    "cluster/__init__.py", "cluster/engine.py", "cluster/router.py",
+    "cluster/autoscaler.py", "launch/dashboard.py",
 ]
 _IMPORT = re.compile(r"^(\s*)(from|import) repro(?=[.\s])", re.M)
 
@@ -53,7 +55,13 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
             "repro_torch.serving.prng",
             "repro_torch.kernels.flash_attention",
             "repro_torch.launch.steps",
-            "repro_torch.models.attention"} <= set(mods)
+            "repro_torch.launch.serve",
+            "repro_torch.models.attention",
+            "repro_torch.examples",
+            "repro_torch.examples.quickstart",
+            "repro_torch.examples.serve_cluster",
+            "repro_torch.examples.serve_mixed_slo",
+            "repro_torch.examples.agentic_pipeline"} <= set(mods)
     code = textwrap.dedent(f"""
         import importlib, importlib.abc, sys
         class Refuse(importlib.abc.MetaPathFinder):
