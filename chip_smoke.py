@@ -28,18 +28,28 @@ the disagg router, with live KV migration, and 2 replicas under
 slo-margin; merged streams equal to the colocated run's), holds a
 migration's export/import bitwise (live and swapped out, bf16 pages as
 int16 patterns on the host) beside ``migrate_time``'s price for it,
-checks the paged kernels' ticket counters are zero after the fleets, and
-times the kernels with CUDA events (the paged kernels also at chunk
-lengths 64, 128 and 256).
+checks the paged kernels' ticket counters are zero after the fleets,
+serves the MoE model kimi-k2 at full width (its depth cut to one layer)
+through the same backend and workload (gmg fused / unfused / four decode
+steps, vllm spec 0 / 4 / replayed drafts, equal streams within each
+scheduler; batch invariance, verify logits bitwise decode logits, the
+decode forward's profile with the MoE's share, the memory a forward
+takes beyond the resident tensors, the phase's peak memory; the paged
+kernels are also checked at its heads, H=64, KV=8, D=128), and times the
+kernels with CUDA events (the paged kernels also at chunk lengths 64,
+128 and 256).
 Then the full-sequence forward: the flash-attention kernel against its
 plain version (the reference's sweep, ragged S, GQA groups of 3, MLA head
-dims, every head-dim pair of the bf16 tensor-core body) and its causal
-mask (K/V changed past a row leave it bitwise equal), full-width
-tinyllama-1.1b and minicpm3-4b in f32 (``decode_step`` after ``prefill``
-equal to ``logits``, one flash launch per layer per forward, and for
-tinyllama the paged path's logits equal too), the bf16 serving dtype
-through ``make_prefill_step`` / ``make_serve_step`` (8 greedy tokens, a
-profiled prefill forward), and the flash kernel's times.
+dims, every head-dim pair of the bf16 tensor-core body, deepseek-v2-lite's
+Dk 192 / Dv 128) and its causal mask (K/V changed past a row leave it
+bitwise equal), full-width tinyllama-1.1b, minicpm3-4b and
+deepseek-v2-lite-16b (MLA + MoE; its f32 checks on its first 4 layers)
+in f32 (``decode_step`` after ``prefill`` equal to ``logits``, one flash
+launch per layer per forward, and for tinyllama the paged path's logits
+equal too), the bf16 serving dtype at full depth through
+``make_prefill_step`` / ``make_serve_step`` (8 greedy tokens, a profiled
+prefill forward with the flash kernel's and the MoE's shares), and the
+flash kernel's times at the three prefill shapes.
 Prints the card, the checks, one JSON line of kernel records and,
 last, one JSON line naming the device.  Exits non-zero, with no result
 lines, on any failed check, when CUDA is unavailable, or outside a checkout.
@@ -71,8 +81,20 @@ FLASH_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention.py:64"
 # the full-sequence models: (B, S) of the f32 checks and of the bf16 runs
 FULLSEQ = {"tinyllama-1.1b": ((4, 512), (4, 1024)),
-           "minicpm3-4b": ((2, 256), (2, 1024))}
+           "minicpm3-4b": ((2, 256), (2, 1024)),
+           "deepseek-v2-lite-16b": ((2, 256), (2, 1024))}
+# depth of the f32 checks where the full depth does not fit in f32 beside
+# the bf16 weights: deepseek-v2-lite's 27 layers take about 63 GB in f32,
+# 4 (its dense layer and 3 MoE layers) about 8.5 GB
+F32_LAYERS = {"deepseek-v2-lite-16b": 4}
 GREEDY_STEPS = 8
+# the MoE model served through the paged path, at full width and cut depth:
+# at depth 1 its 384 experts take 33.8 GB, attention 0.26 GB, embed and
+# lm_head 4.7 GB and the lm_head's f32 copy 4.7 GB, about 43.5 GB; depth 2
+# would take about 78 GB, beyond an 80 GB card with the pools and the
+# activations
+KIMI = "kimi-k2-1t-a32b"
+KIMI_LAYERS = 1
 # the flash kernel's cases: (B, S, H, KV, Dk, Dv, dtype, causal)
 FLASH_SWEEP = [(B, S, H, KV, D, D, dt, True)          # the reference sweep
                for B, S, H, KV, D in ((2, 128, 4, 4, 64), (1, 256, 8, 2, 64),
@@ -96,12 +118,22 @@ FLASH_SWEEP = [(B, S, H, KV, D, D, dt, True)          # the reference sweep
     (1, 130, 24, 8, 96, 128, "bfloat16", True),
     (1, 1, 6, 2, 96, 128, "bfloat16", False),
     (2, 300, 24, 8, 128, 64, "bfloat16", False),
-    (1, 1000, 16, 2, 16, 16, "bfloat16", False)]
+    (1, 1000, 16, 2, 16, 16, "bfloat16", False),
+    # deepseek-v2-lite's MLA head dims (three Q/K panels), causal and full,
+    # ragged S, G = 1 and G = 4
+    (1, 300, 16, 16, 192, 128, "float32", True),
+    (2, 77, 16, 16, 192, 128, "float32", False),
+    (2, 77, 16, 16, 192, 128, "bfloat16", True),
+    (1, 200, 16, 16, 192, 128, "bfloat16", False),
+    (1, 1000, 8, 2, 192, 128, "bfloat16", True),
+    (3, 1, 16, 16, 192, 128, "bfloat16", True)]
 # the main path's calls: each model's bf16 prefill and f32 check
 FLASH_MAIN = [(4, 1024, 32, 4, 64, 64, "bfloat16", True),
               (2, 1024, 40, 40, 96, 64, "bfloat16", True),
+              (2, 1024, 16, 16, 192, 128, "bfloat16", True),
               (4, 512, 32, 4, 64, 64, "float32", True),
-              (2, 256, 40, 40, 96, 64, "float32", True)]
+              (2, 256, 40, 40, 96, 64, "float32", True),
+              (2, 256, 16, 16, 192, 128, "float32", True)]
 # the capped mixed workload of the quickstart's real-execution mode
 WORKLOAD = dict(rate=1.5, duration=6.0, seed=0, mix=(2, 1, 1), prompt_cap=40,
                 output_cap=12, slo_scale=20.0)
@@ -180,12 +212,13 @@ def case(torch, B, H, KV, D, page, ctxs, dtype, seed):
                 ctx=torch.tensor(ctxs, dtype=torch.int32, device="cuda"))
 
 
-def serving_case(torch, B, ctxs, seed):
+def serving_case(torch, B, ctxs, seed, H=32, KV=4, D=64):
     """The decode call the serving path makes at full width: B lanes, the
     first len(ctxs) live at those contexts on a padded table (pages past
     the context name the scrap page), the rest padding lanes at position 0
-    on the all-scrap table.  n_max 16 (max_len 256), bf16."""
-    H, KV, D, page, n_max = 32, 4, 64, 16, 16
+    on the all-scrap table.  n_max 16 (max_len 256), bf16; tinyllama's
+    heads by default."""
+    page, n_max = 16, 16
     g = torch.Generator(device="cuda").manual_seed(seed)
     P = len(ctxs) * n_max + 1
     scrap = P - 1
@@ -499,6 +532,22 @@ def check_paged_all(torch, pa) -> dict:
                           f"{dt} B={B} H={H} KV={KV} D={D} page={page} "
                           f"ctx {ctxs}")
     main_err["fused_verify_attention"] = check_verify_all(torch, pa)
+    # kimi-k2's serving calls (H=64, KV=8, D=128): decode and attend only
+    # with 8 live of 64 lanes, and the verify kernel at W=5, 8 drafted
+    # lanes beside 56 padding lanes
+    live = [1, 15, 16, 17, 32, 33, 48, 52]
+    c = serving_case(torch, 64, live, seed=295, H=64, KV=8, D=128)
+    errs = check_kernels(torch, pa, c, 2e-2, "bf16 B=64 (8 live, "
+                         "ctx<=52) H=64 KV=8 D=128 n_max=16 (kimi-k2)",
+                         live=8)
+    main_err.update({k: max(main_err[k], v) for k, v in errs.items()})
+    c = verify_case(torch, 8, 5, 64, 8, 128, 16, live,
+                    [5, 2, 5, 1, 4, 5, 3, 5], torch.bfloat16, seed=296,
+                    lanes=64)
+    main_err["fused_verify_attention"] = max(
+        main_err["fused_verify_attention"],
+        check_verify(torch, pa, c, 2e-2, "bf16 64 lanes (8 live, ctx<=56) "
+                     "W=5 H=64 KV=8 D=128 (kimi-k2)"))
     lane_alone(torch, pa)
     return main_err
 
@@ -621,25 +670,37 @@ def chunk_sweep(torch, pa, build, flush, default) -> None:
 
 
 def serve(torch, pa, fused=True, decode_steps=1, scheduler="gmg", spec=0,
-          temperature=0.0, prompts=None, drafter=None):
-    """Full-width tinyllama-1.1b through run(); kernel launch counts are
-    zeroed just before the run and read just after it.  ``spec`` is the
-    engine's draft-depth ceiling; temperature > 0 samples with top_k 50;
-    ``prompts`` is ``ExperimentSpec.prompts``; ``drafter`` replaces the
-    n-gram drafter."""
+          temperature=0.0, prompts=None, drafter=None, be=None):
+    """Full-width tinyllama-1.1b through run(), on a backend of its own or,
+    given ``be``, on that backend after ``reset_run_state`` with its
+    attention mode, sampler and drafter set for this run; kernel launch
+    counts are zeroed just before the run and read just after it.
+    ``spec`` is the engine's draft-depth ceiling; temperature > 0 samples
+    with top_k 50; ``prompts`` is ``ExperimentSpec.prompts``; ``drafter``
+    replaces the n-gram drafter."""
     from repro_torch.examples.quickstart import _stream_digest
     from repro_torch.obs import MetricsRegistry
+    from repro_torch.serving.backend import Sampler
+    from repro_torch.serving.drafter import NgramDrafter
     from repro_torch.serving.engine import EngineConfig
     from repro_torch.serving.run import (BackendSpec, ExperimentSpec,
                                          TelemetrySpec, run)
     from repro_torch.serving.torch_backend import PagedTorchBackend
     from repro_torch.serving.workload import WorkloadSpec
 
-    be = PagedTorchBackend(**SERVE_KW, fused=fused, temperature=temperature,
-                           top_k=50 if temperature > 0 else 0,
-                           drafter=drafter)
-    check(be.cfg.d_model == 2048 and be.cfg.num_layers == 22
-          and be.cfg.dtype == "bfloat16", "full-width tinyllama config")
+    top_k = 50 if temperature > 0 else 0
+    if be is None:
+        be = PagedTorchBackend(**SERVE_KW, fused=fused,
+                               temperature=temperature, top_k=top_k,
+                               drafter=drafter)
+        check(be.cfg.d_model == 2048 and be.cfg.num_layers == 22
+              and be.cfg.dtype == "bfloat16", "full-width tinyllama config")
+    else:
+        be.reset_run_state()
+        be.fused = fused
+        be.sampler = Sampler(temperature=temperature, top_k=top_k,
+                             seed=be._seed)
+        be.drafter = drafter if drafter is not None else NgramDrafter()
     obs = MetricsRegistry()
     engine = EngineConfig(max_batch=8, prefill_budget=32,
                           decode_steps=decode_steps, spec_depth_max=spec)
@@ -1016,8 +1077,12 @@ def profiled(torch, fn, reps=10):
         return getattr(e, "device_time_total", None) \
             or getattr(e, "cuda_time_total", 0.0)
 
+    # device kernels only: not the runtime's calls, copies, fills, or the
+    # launch queue's stalls ("Command Buffer Full") the profiler also lists
+    # with device time
     kernels = [e for e in prof.key_averages() if dev_us(e) > 0
-               and not e.key.startswith(("aten::", "cuda", "Memcpy",
+               and not e.key.startswith(("aten::", "cuda", "cuLaunch",
+                                         "Command Buffer", "Memcpy",
                                          "Memset"))]
     busy_ms = sum(dev_us(e) for e in kernels) / reps / 1e3
     top = [(dev_us(e) / reps / 1e3, e.count // reps, e.key)
@@ -1052,7 +1117,8 @@ def decode_breakdown(torch, be) -> None:
     comparison, as 5 slabs of every lane's row s.  Then a decode forward
     and a packed verify forward at context 240 (the window's last row at
     244, under the backend's ``max_len`` 256), where the verify kernel's
-    share of a verify forward is largest."""
+    share of a verify forward is largest.  For a model with MoE layers,
+    ``moe_decode`` on the decode forward at context 48."""
     from repro_torch.models.model import verify_slabs
 
     B, live, W = 64, 8, 5
@@ -1088,6 +1154,158 @@ def decode_breakdown(torch, be) -> None:
                   "busy)")
             for ms, count, key in top[:8]:
                 print(f"    {ms:.4f} ms x{count} {key[:90]}")
+            if name == "decode forward" and ctx == 48 and moe_layers(be.cfg):
+                moe_decode(torch, be, fn, busy_ms, top)
+
+
+def moe_layers(cfg) -> int:
+    """Number of layers of ``cfg`` whose FFN is "moe"."""
+    return (sum(f == "moe" for _, f in cfg.prefix_pattern)
+            + cfg.num_units * sum(f == "moe" for _, f in cfg.unit_pattern))
+
+
+def moe_share(torch, cfg, params, x, busy_ms) -> str:
+    """One layer's ``moe_apply`` on ``x`` (the forward's hidden states at
+    one layer) profiled alone, times the model's MoE layers, as a share of
+    a forward's device-busy ``busy_ms``; beside it the time the expert
+    weights of those layers take to read once at 3.35 TB/s."""
+    from repro_torch.models.moe import moe_apply
+
+    key = next(f"l{i}" for i, (_, f) in enumerate(cfg.unit_pattern)
+               if f == "moe")
+    lp = {k: v[0] for k, v in params["units"][key].items()}
+    _, one_ms, n, _ = profiled(torch, lambda: moe_apply(x, lp, cfg), reps=5)
+    layers = moe_layers(cfg)
+    nbytes = layers * sum(lp[k].numel() * lp[k].element_size()
+                          for k in ("w_gate", "w_up", "w_down"))
+    read_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return (f"MoE {one_ms:.3f} ms device busy a layer ({n:.0f} kernels) x "
+            f"{layers} layers = {one_ms * layers:.3f} ms "
+            f"({one_ms * layers / busy_ms:.3f} of busy; reading its "
+            f"{nbytes / 1e9:.2f} GB of expert weights once takes "
+            f"{read_ms:.3f} ms at 3.35 TB/s)")
+
+
+def moe_decode(torch, be, fn, busy_ms, top) -> None:
+    """The MoE model's decode forward ``fn`` (64 rows; profiled, its
+    device-busy ``busy_ms`` and kernels ``top``): the device time of its
+    MoE layers, its largest copy kernels, and the memory one call takes
+    beyond what is allocated before it (a permuted copy of one expert
+    weight would add 11.3 GB at kimi-k2's width).  Resets the peak memory
+    statistics."""
+    g = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.randn((64, 1, be.cfg.d_model), generator=g,
+                    device="cuda").to(torch.bfloat16)
+    print("    " + moe_share(torch, be.cfg, be.params, x, busy_ms))
+    copies = [(ms, count, key) for ms, count, key in top
+              if "copy" in key.lower()]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    print("    largest copy kernels: " + ("; ".join(
+        f"{ms:.4f} ms x{count} {key[:80]}" for ms, count, key in copies[:3])
+        or "none") + f"; one forward allocates {extra / 2**30:.3f} GiB "
+          "beyond the resident weights, pools and buffers")
+    check(extra < 4 * 2**30, f"a decode forward allocates {extra} B: a copy "
+          "of an expert weight?")
+
+
+def kimi_serving(torch, pa, card) -> dict:
+    """The MoE serving phase: kimi-k2 at full width, its depth cut to
+    ``KIMI_LAYERS``, through ``PagedTorchBackend`` on the capped workload,
+    one backend reused across runs (two do not fit the card): gmg fused
+    n=1, fused n=4 and unfused n=1 with equal digests; after the first,
+    batch invariance, verify logits bitwise decode logits, the decode and
+    verify forwards' profiles and the MoE's share; then vllm with motif
+    prompts at spec 0, spec 4 and spec 4 with the spec-0 run's streams
+    replayed as drafts (accepted), with equal digests.  Returns the paged
+    kernels' launches on the runs that take them."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.convert import tree_leaves
+    from repro_torch.serving.torch_backend import ROWS, PagedTorchBackend
+
+    t0 = time.perf_counter()
+    full = get_config(KIMI)
+    cfg = dataclasses.replace(full, num_layers=KIMI_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    be = PagedTorchBackend(config=cfg, **{
+        k: v for k, v in SERVE_KW.items() if k not in ("arch", "reduced")})
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(be.params))
+    print(f"serving {KIMI} at full width (d {cfg.d_model}, H "
+          f"{cfg.num_heads}, KV {cfg.num_kv_heads}, Dh "
+          f"{cfg.resolved_head_dim}, {cfg.num_experts} routed experts top-"
+          f"{cfg.top_k} + {cfg.num_shared_experts} shared, d_ff_expert "
+          f"{cfg.d_ff_expert}, vocab {cfg.vocab_size}; bf16, random weights "
+          f"from seed 0), depth CUT to {KIMI_LAYERS} of {full.num_layers} "
+          f"layers ({nbytes / 1e9:.2f} GB of weights; depth 2 would not fit "
+          f"80 GB with the lm_head's f32 copy, the pools and the "
+          f"activations); built in {time.perf_counter() - t0:.2f} s:")
+    check(be.device.type == "cuda" and cfg.d_model == 7168
+          and cfg.num_heads == 64 and cfg.num_kv_heads == 8
+          and cfg.resolved_head_dim == 128 and cfg.num_experts == 384
+          and cfg.top_k == 8 and cfg.num_shared_experts == 1
+          and cfg.d_ff_expert == 2048 and cfg.vocab_size == 163840
+          and cfg.dtype == "bfloat16" and be.model.supports_paged(),
+          "full-width kimi-k2 config on the card")
+    counts, digests, peak = {}, {}, 0
+    for label, kw in (("fused n=1", {}), ("fused n=4", dict(decode_steps=4)),
+                      ("unfused n=1", dict(fused=False))):
+        _, _, counts[label], digests[label] = serve(torch, pa, be=be, **kw)
+        if label == "fused n=1":
+            invariant = batch_invariance(torch, be, ROWS)
+            check(invariant["fixed"], "kimi-k2: results depend on the batch "
+                  "grouping or the prefill chunking")
+            verify_vs_decode(torch, be, ROWS)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            decode_breakdown(torch, be)     # resets the peak statistics
+    print(f"  gmg digests: fused n=1 {digests['fused n=1']}, fused n=4 "
+          f"{digests['fused n=4']}, unfused n=1 {digests['unfused n=1']}")
+    check(len(set(digests.values())) == 1, "kimi-k2: the gmg token streams "
+          "differ across fused / unfused / decode_steps")
+    check(counts["fused n=1"]["fused_decode_attention"] > 0,
+          "kimi-k2: fused_decode_attention never launched")
+    check(counts["unfused n=1"]["paged_attention"] > 0,
+          "kimi-k2: paged_attention never launched on the fused=False run")
+    spec = {}
+    for label, kw in (("spec 0", dict(spec=0)), ("spec 4", dict(spec=4)),
+                      ("spec 4 replayed", dict(spec=4))):
+        if label == "spec 4 replayed":
+            kw["drafter"] = replay
+        _, spec[label], counts[label], digests[label] = serve(
+            torch, pa, be=be, scheduler="vllm", prompts=motif_prompts, **kw)
+        if label == "spec 0":
+            replay = replay_of(be, motif_prompts)
+    print(f"  vllm digests: spec 0 {digests['spec 0']}, spec 4 "
+          f"{digests['spec 4']}, spec 4 replayed drafts "
+          f"{digests['spec 4 replayed']}; n-gram drafts accepted "
+          f"{spec['spec 4'].spec_accepted} of {spec['spec 4'].spec_proposed}"
+          f", replayed {spec['spec 4 replayed'].spec_accepted} of "
+          f"{spec['spec 4 replayed'].spec_proposed}")
+    check(digests["spec 4"] == digests["spec 0"]
+          and digests["spec 4 replayed"] == digests["spec 0"],
+          "kimi-k2: speculation changed the vllm token streams")
+    check(spec["spec 4"].spec_proposed > 0, "kimi-k2: no draft proposed")
+    check(spec["spec 4 replayed"].spec_accepted > 0,
+          "kimi-k2: no replayed draft was accepted")
+    check(counts["spec 4"]["fused_verify_attention"] > 0
+          and counts["spec 4 replayed"]["fused_verify_attention"] > 0,
+          "kimi-k2: fused_verify_attention never launched")
+    torch.cuda.synchronize()
+    peak = max(peak, torch.cuda.max_memory_allocated())
+    del be
+    torch.cuda.empty_cache()
+    print(f"  kimi-k2 phase: {time.perf_counter() - t0:.2f} s wall, peak "
+          f"allocated {peak / 2**30:.2f} GiB ({card})")
+    return {"fused_decode_attention":
+            counts["fused n=1"]["fused_decode_attention"],
+            "paged_attention": counts["unfused n=1"]["paged_attention"],
+            "fused_verify_attention":
+            counts["spec 4"]["fused_verify_attention"]}
 
 
 def flash_inputs(torch, B, S, H, KV, Dk, Dv, dtype, seed):
@@ -1164,12 +1382,12 @@ def paged_ptxas_report(log, pa) -> None:
           "no paged kernel in the build's ptxas report")
 
 
-def check_flash(torch, fa) -> float:
+def check_flash(torch, fa) -> dict:
     """The flash kernel against its plain version at every case of
     ``FLASH_SWEEP`` and ``FLASH_MAIN``, within the reference's tolerances
     (3e-5 f32, 2.5e-2 bf16; ``tests/test_kernels.py``).  Returns the
-    largest difference at the main path's shapes."""
-    worst = 0.0
+    largest difference at the main path's shapes, by (Dk, Dv)."""
+    worst = {}
     for i, case in enumerate(FLASH_SWEEP + FLASH_MAIN):
         B, S, H, KV, Dk, Dv, dtype, causal = case
         q, k, v = flash_inputs(torch, B, S, H, KV, Dk, Dv, dtype, 600 + i)
@@ -1185,17 +1403,18 @@ def check_flash(torch, fa) -> float:
         check(tuple(out.shape) == (B, S, H, Dv) and err <= tol,
               f"flash_attention {label}: {err} > {tol}")
         if case in FLASH_MAIN:
-            worst = max(worst, err)
+            worst[Dk, Dv] = max(worst.get((Dk, Dv), 0.0), err)
     return worst
 
 
 def check_flash_mask(torch, fa) -> None:
-    """Causality of the bf16 kernel on the card, at both prefill shapes
+    """Causality of the bf16 kernel on the card, at each bf16 prefill shape
     (one sequence): K/V changed at positions past i leave rows 0..i
     bitwise equal; changed at i too, rows before i stay equal and row i
     changes in every head.  i inside a 64-key tile, on its last key and on
     the first key of the next."""
-    for seed, (B, S, H, KV, Dk, Dv, _, _) in enumerate(FLASH_MAIN[:2]):
+    bf16 = [c for c in FLASH_MAIN if c[6] == "bfloat16"]
+    for seed, (B, S, H, KV, Dk, Dv, _, _) in enumerate(bf16):
         q, k, v = flash_inputs(torch, 1, S, H, KV, Dk, Dv, "bfloat16",
                                800 + seed)
         _, k_new, v_new = flash_inputs(torch, 1, S, H, KV, Dk, Dv,
@@ -1223,29 +1442,41 @@ def check_flash_mask(torch, fa) -> None:
 def fullseq(torch, fa, arch) -> int:
     """One full-width model's full-sequence forward (random bf16 weights
     from seed 0).  In f32 (copies of those weights, so the tolerance speaks
-    of the algorithm): ``decode_step`` after ``prefill`` of S-1 tokens
-    equals ``logits`` at S-1 within the reference's rtol = atol = 2e-2
-    (``tests/test_models_smoke.py``), one flash launch per layer per
+    of the algorithm; the first ``F32_LAYERS[arch]`` layers where the whole
+    depth does not fit in f32): ``decode_step`` after ``prefill`` of S-1
+    tokens equals ``logits`` at S-1 within the reference's rtol = atol =
+    2e-2 (``tests/test_models_smoke.py``), one flash launch per layer per
     forward, and for tinyllama the paged path's (``prefill_paged`` +
-    fused ``decode_paged``) logits equal too.  In bf16, the main path:
-    ``make_prefill_step`` then ``make_serve_step`` for ``GREEDY_STEPS``
-    greedy tokens, flash launches counted from 0 just before and read just
-    after; then one profiled prefill forward.  Returns the main path's
-    flash launches."""
+    fused ``decode_paged``) logits equal too.  In bf16 at full depth, the
+    main path: ``make_prefill_step`` then ``make_serve_step`` for
+    ``GREEDY_STEPS`` greedy tokens, flash launches counted from 0 just
+    before and read just after; then one profiled prefill forward (with
+    the MoE layers' share, where the model has them).  Returns the main
+    path's flash launches."""
     from repro_torch.configs.base import get_config
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models.convert import tree_map
     from repro_torch.models.model import build_model
 
+    t_arch = time.perf_counter()
     (B, S), (Bs, Ss) = FULLSEQ[arch]
     cfg = get_config(arch)
     check(cfg.dtype == "bfloat16", f"{arch} serves in bf16")
-    L = cfg.num_layers
+    L = F32_LAYERS.get(arch, cfg.num_layers)
     model, prefill_step = make_prefill_step(cfg)
     _, serve_step = make_serve_step(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
-    m32 = build_model(dataclasses.replace(cfg, dtype="float32"))
-    p32 = tree_map(lambda t: t.float(), params)
+    m32 = build_model(dataclasses.replace(cfg, dtype="float32",
+                                          num_layers=L))
+    units = m32.cfg.num_units          # the f32 copy of the first L layers
+    p32 = dict(tree_map(lambda t: t.float(), {
+        k: v for k, v in params.items() if k != "units"}),
+        units=tree_map(lambda t: t[:units].float(), params["units"]))
+    if L < cfg.num_layers:
+        print(f"  {arch}: the f32 checks run its first {L} of "
+              f"{cfg.num_layers} layers (depth CUT: the whole depth in f32 "
+              "would not fit beside the bf16 weights); the bf16 main path "
+              "runs all of them")
     g = torch.Generator(device="cuda").manual_seed(1)
 
     def tokens(b, s):
@@ -1300,7 +1531,10 @@ def fullseq(torch, fa, arch) -> int:
               f"{arch}: paged logits differ from decode_step logits")
         del pages
     stoks = tokens(Bs, Ss)
-    ref32, _ = m32.prefill(p32, {"tokens": stoks})
+    # the bf16 prefill's logits against f32 ones, where the f32 copy has
+    # the whole depth
+    ref32 = (m32.prefill(p32, {"tokens": stoks})[0]
+             if L == cfg.num_layers else None)
     del p32, full, caches, dec
     torch.cuda.empty_cache()
 
@@ -1320,13 +1554,14 @@ def fullseq(torch, fa, arch) -> int:
     launches = fa.launches["flash_attention"]
     toks_out = torch.cat(out, dim=1).cpu().tolist()
     digest = hashlib.sha256(repr(toks_out).encode()).hexdigest()[:16]
-    bdiff = (first - ref32).abs().max().item()
+    bdiff = ("not compared (the f32 copy is depth-cut)" if ref32 is None
+             else f"{(first - ref32).abs().max().item():.3e}")
     print(f"  {arch} bf16 B={Bs} S={Ss}: make_prefill_step + "
           f"{GREEDY_STEPS} make_serve_step greedy tokens in {wall:.3f} s "
           f"wall, flash launches {launches}, token digest {digest}, "
-          f"prefill logits vs f32 max|diff| {bdiff:.3e}")
-    check(launches == L, f"{arch}: {launches} flash launches on the main "
-          f"path, want {L}")
+          f"prefill logits vs f32 max|diff| {bdiff}")
+    check(launches == cfg.num_layers, f"{arch}: {launches} flash launches "
+          f"on the main path, want {cfg.num_layers}")
     check(bool(torch.isfinite(logits).all())
           and tuple(logits.shape) == (Bs, cfg.vocab_size)
           and all(0 <= t < cfg.vocab_size for r in toks_out for t in r),
@@ -1336,6 +1571,10 @@ def fullseq(torch, fa, arch) -> int:
 
     wall_ms, busy_ms, n, top = profiled(
         torch, lambda: prefill_step(params, {"tokens": stoks}), reps=5)
+    moe = ""
+    if moe_layers(cfg):
+        x = params["embed"][stoks.long()]
+        moe = "; " + moe_share(torch, cfg, params, x, busy_ms)
     flash = [(ms, key) for ms, _, key in top if "flash_wgmma_kernel" in key]
     flash_ms = sum(ms for ms, _ in flash)
     check(busy_ms > 0 and flash_ms > 0,
@@ -1345,16 +1584,17 @@ def fullseq(torch, fa, arch) -> int:
           f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms (idle share "
           f"{1 - busy_ms / wall_ms:.3f}), {n:.0f} kernels, flash kernel "
           f"{flash_ms:.3f} ms ({flash_ms / busy_ms:.3f} of busy) as "
-          + ", ".join(key[:100] for _, key in flash))
+          + ", ".join(key[:100] for _, key in flash) + moe)
     for ms, count, key in top[:8]:
         print(f"    {ms:.4f} ms x{count} {key[:90]}")
     del params, model
     torch.cuda.empty_cache()
+    print(f"  {arch}: {time.perf_counter() - t_arch:.2f} s wall")
     return launches
 
 
 def flash_times(torch, fa, flush) -> dict:
-    """The flash kernel at the two prefill shapes (bf16, causal): kernel,
+    """The flash kernel at the three prefill shapes (bf16, causal): kernel,
     plain version and one SDPA call on (B, H, S, D) with K/V expanded to H
     heads beforehand, medians of CUDA events with the L2 flushed.  The
     bound is that of what the bf16 kernel computes: q·k and p·v (p rounded
@@ -1365,7 +1605,8 @@ def flash_times(torch, fa, flush) -> dict:
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = {}
     shapes = {"tinyllama-1.1b": (4, 1024, 32, 4, 64, 64),
-              "minicpm3-4b": (2, 1024, 40, 40, 96, 64)}
+              "minicpm3-4b": (2, 1024, 40, 40, 96, 64),
+              "deepseek-v2-lite-16b": (2, 1024, 16, 16, 192, 128)}
     for i, (arch, (B, S, H, KV, Dk, Dv)) in enumerate(shapes.items()):
         q, k, v = flash_inputs(torch, B, S, H, KV, Dk, Dv, "bfloat16",
                                700 + i)
@@ -1536,6 +1777,9 @@ def main() -> int:
     # 4c. the fleet: disaggregated and routed replicas on the card
     fleet(torch, pa, dig_f1, card)
 
+    # 4d. the MoE model through the paged path, full width, depth cut
+    kimi_launches = kimi_serving(torch, pa, card)
+
     # 5. times at the main path's shapes: B=8 lanes at ctx 512, bf16
     flush = torch.empty(32 * 2**20, dtype=torch.float32, device="cuda")
     B, H, KV, D, page, ctx = 8, 32, 4, 64, 16, 512
@@ -1619,10 +1863,12 @@ def main() -> int:
               f"= {t_ops:.5f} ms), plain {plain_ms:.4f} ms, "
               f"SDPA {lib_of[name]:.4f} ms, {launches} launches = "
               f"{per_step:g} per {'verify' if 'verify' in name else 'decode'}"
-              f" forward")
+              f" forward on tinyllama-1.1b, {kimi_launches[name]} on "
+              f"kimi-k2's")
         records.append(dict(
             name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
-            launches=launches, max_abs_err=main_err[name], ms=ms,
+            launches=launches + kimi_launches[name],
+            max_abs_err=main_err[name], ms=ms,
             plain_ms=plain_ms, bound_ms=bound_ms,
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             library_ms=lib_of[name]))
@@ -1636,16 +1882,25 @@ def main() -> int:
     flash_err = check_flash(torch, fa)
     check_flash_mask(torch, fa)
     print("full-sequence forward, full width (random weights from seed 0):")
-    flash_launches = sum(fullseq(torch, fa, arch) for arch in FULLSEQ)
+    flash_launches = {arch: fullseq(torch, fa, arch) for arch in FULLSEQ}
     print("flash_attention times (bf16, causal, L2 flushed; median of CUDA "
           "events):")
     ft = flash_times(torch, fa, flush)
-    ms, plain_ms, lib_ms, bound_ms, by = ft["tinyllama-1.1b"]
-    records.append(dict(
-        name="flash_attention", route="cuda", source=FLASH_SOURCE,
-        replaces=FLASH_REPLACES, launches=flash_launches,
-        max_abs_err=flash_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=by, library_ms=lib_ms))
+    # one record at tinyllama's prefill shape (launches of every model's
+    # main path), one at deepseek-v2-lite's head dims (its launches)
+    for name, arch, launches in (
+            ("flash_attention", "tinyllama-1.1b",
+             sum(flash_launches.values())),
+            ("flash_attention (Dk 192, Dv 128)", "deepseek-v2-lite-16b",
+             flash_launches["deepseek-v2-lite-16b"])):
+        ms, plain_ms, lib_ms, bound_ms, by = ft[arch]
+        records.append(dict(
+            name=name, route="cuda", source=FLASH_SOURCE,
+            replaces=FLASH_REPLACES, launches=launches,
+            max_abs_err=(flash_err[192, 128] if "192" in name
+                         else max(flash_err.values())),
+            ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=by, library_ms=lib_ms))
     print(f"total: {time.perf_counter() - t_start:.1f} s")
 
     # 7. kernel records, then 8. the device

@@ -7,10 +7,11 @@ From the root of a checkout, on a machine with an NVIDIA Hopper card:
 builds ``src/repro_torch/csrc/flash_attention.cu``, prints each bf16
 instance's registers, spills and shared memory, holds the kernel against
 its plain version at small shapes first (one tile, two tiles, ragged S,
-S = 1, every head-dim pair) and then at the two prefill shapes, within the
-reference's bf16 tolerance 2.5e-2, and times those two shapes back to
-back with a warm L2 (mean of 50 calls between two CUDA events).  Exits
-non-zero at the first case that fails; ``chip_smoke.py`` is the full run.
+S = 1, every head-dim pair, three Q/K panels at Dk 192) and then at the
+three prefill shapes, within the reference's bf16 tolerance 2.5e-2, and
+times those shapes back to back with a warm L2 (mean of 50 calls between
+two CUDA events).  Exits non-zero at the first case that fails;
+``chip_smoke.py`` is the full run.
 """
 
 import os
@@ -25,8 +26,14 @@ CASES = [(1, 64, 1, 1, 64, 64, True), (1, 128, 1, 1, 64, 64, True),
          (1, 200, 4, 4, 96, 64, True), (1, 100, 4, 2, 16, 16, True),
          (2, 33, 4, 4, 24, 16, True), (3, 1, 4, 2, 64, 64, True),
          (1, 130, 6, 2, 96, 128, False), (1, 300, 6, 2, 128, 64, True),
-         (4, 1024, 32, 4, 64, 64, True), (2, 1024, 40, 40, 96, 64, True)]
-PREFILL = [(4, 1024, 32, 4, 64, 64), (2, 1024, 40, 40, 96, 64)]
+         # three Q/K panels (deepseek-v2-lite's MLA prefill head dims)
+         (1, 64, 1, 1, 192, 128, True), (1, 128, 1, 1, 192, 128, False),
+         (1, 128, 2, 1, 192, 128, True), (2, 77, 4, 2, 192, 128, True),
+         (1, 300, 16, 16, 192, 128, False),
+         (4, 1024, 32, 4, 64, 64, True), (2, 1024, 40, 40, 96, 64, True),
+         (2, 1024, 16, 16, 192, 128, True)]
+PREFILL = [(4, 1024, 32, 4, 64, 64), (2, 1024, 40, 40, 96, 64),
+           (2, 1024, 16, 16, 192, 128)]
 
 
 def main() -> int:

@@ -1,11 +1,22 @@
-"""Import the architecture modules the port runs so their ``@register``
-decorators run, plus the reduced-config factory for CPU tests."""
+"""Import all architecture modules so their ``@register`` decorators run,
+plus reduced-config factory for CPU smoke tests."""
 
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs import minicpm3_4b, tinyllama_1p1b  # noqa: F401
+from repro_torch.configs import (  # noqa: F401
+    deepseek_v2_lite_16b,
+    kimi_k2_1t_a32b,
+    xlstm_1p3b,
+    tinyllama_1p1b,
+    yi_34b,
+    minitron_4b,
+    minicpm3_4b,
+    jamba_v0p1_52b,
+    musicgen_medium,
+    pixtral_12b,
+)
 from repro_torch.configs.base import ModelConfig, get_config
 
 

@@ -10,7 +10,7 @@
 //
 // Layout, as in the reference: q (B,S,H,Dk), k (B,S,KV,Dk), v (B,S,KV,Dv),
 // out (B,S,H,Dv), all contiguous; query head h reads kv-head h / (H/KV).
-// Dv may differ from Dk (MLA prefill: Dk 96, Dv 64).  Masked scores are the
+// Dv may differ from Dk (MLA prefill: Dk 96, Dv 64; Dk 192, Dv 128).  Masked scores are the
 // reference's -1e30 and the output is acc / max(l, 1e-30), rounded once to
 // the storage type.  Any S >= 1.  Two bodies, chosen by dtype, with no
 // fallback from one to the other:
@@ -34,7 +34,8 @@
 //   ring of two K/V stages handed over by full/empty mbarriers, so the next
 //   tile's copy is in flight while the current tile's products run.  Head
 //   dims are padded to whole panels by TMA's zero fill (Dk 96 -> 128, which
-//   adds a third to q.k at minicpm3's shape; 16 and 24 -> 64); the ragged
+//   adds a third to q.k at minicpm3's shape; 16 and 24 -> 64); Dk 192 is
+//   three panels, q.k then chains 12 k16 steps over them; the ragged
 //   edge of S is zero-filled the same way, keys at or past S are scored
 //   -1e30 and rows at or past S are not written.  Key tiles are 64 keys:
 //   with 64-row query tiles the causal key loop stops exactly at the
@@ -780,8 +781,9 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 
 // bf16 != 0 selects the bf16 (tensor-core) body, else the f32 one.  Every
 // pointer must be 16-byte aligned (the wrapper checks).  The head dims are
-// the served models' (tinyllama 64/64, minicpm3's MLA prefill 96/64),
-// 128-wide heads, and the reduced test configs' (16/16 GQA, 24/16 MLA).
+// the served models' (tinyllama 64/64, minicpm3's MLA prefill 96/64,
+// deepseek-v2-lite's 192/128), 128-wide heads, and the reduced test
+// configs' (16/16 GQA, 24/16 MLA).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int B, int S,
                                       int H, int KV, int Dk, int Dv,
@@ -804,6 +806,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   FLASH_CASE(128, 64)
   FLASH_CASE(16, 16)
   FLASH_CASE(24, 16)
+  FLASH_CASE(192, 128)
 #undef FLASH_CASE
   return (int)cudaErrorInvalidValue;
 }

@@ -29,10 +29,11 @@ from repro_torch.kernels import build
 NEG_INF = -1e30
 
 # (Dk, Dv) pairs the kernel is instantiated for: the full-width models'
-# (64/64 tinyllama, 96/64 minicpm3's MLA prefill), 128-wide heads, and the
-# reduced test configs' (16/16 GQA, 24/16 MLA)
+# (64/64 tinyllama, 96/64 minicpm3's and 192/128 deepseek-v2-lite's MLA
+# prefill), 128-wide heads, and the reduced test configs' (16/16 GQA, 24/16
+# MLA)
 HEAD_DIMS = frozenset({(64, 64), (96, 64), (128, 128), (64, 128), (96, 128),
-                       (128, 64), (16, 16), (24, 16)})
+                       (128, 64), (16, 16), (24, 16), (192, 128)})
 
 # kernel launches (plain versions are not counted)
 launches: Dict[str, int] = {"flash_attention": 0}
@@ -118,14 +119,15 @@ def _check(q, k, v) -> None:
 def _check_tma(q, k, v) -> None:
     """What the bf16 kernel's tensor maps (dims (D, heads, S, B), boxes
     of {64, 1, 64, 1}) need: every byte stride a multiple of 16 and below
-    2^40, every dim below 2^32, the head dims within two 64-wide panels."""
+    2^40, every dim below 2^32, the head dims within three 64-wide
+    panels."""
     for name, t in dict(q=q, k=k, v=v).items():
         B, S, heads, D = t.shape
         strides = (2 * D, 2 * heads * D, 2 * S * heads * D)
         if any(s % 16 or s >= 2 ** 40 for s in strides):
             raise ValueError(f"{name}: byte strides {strides} of its tensor "
                              "map must be multiples of 16 below 2^40")
-        if max(t.shape) >= 2 ** 32 or D > 128:
+        if max(t.shape) >= 2 ** 32 or D > 192:
             raise ValueError(f"{name}: shape {tuple(t.shape)} does not fit "
                              "a tensor map of 64-wide boxes")
 

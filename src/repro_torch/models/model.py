@@ -1,8 +1,8 @@
 """The reference's model API (``repro.models.model``) on PyTorch tensors,
-for "attn" (GQA) and "mla" stacks with "mlp" or "none" FFNs: the
+for "attn" (GQA) and "mla" stacks with "mlp", "moe" or "none" FFNs: the
 full-sequence forward (``logits``, ``prefill``, ``decode_step`` over
 contiguous caches) and the paged-serving entry points (``prefill_paged``,
-``decode_paged``, ``verify_paged``; GQA stacks).
+``decode_paged``, ``verify_paged``; GQA stacks with any FFN).
 
 Parameters are a plain dict of tensors in the reference's layout:
 ``embed`` (V, d); ``prefix`` {"l{i}": layer}; ``units`` {"l{i}": layer},
@@ -12,8 +12,12 @@ wk/wv (d, KV, Dh), wo (H, Dh, d); an MLA layer ln1, w_dq (d, q_lora),
 q_ln, w_uq (q_lora, H, nope+rope) (or w_q (d, H, nope+rope) without a q
 LoRA), w_dkv (d, r), kv_ln, w_kr (d, rope), w_uk (r, H, nope), w_uv (r,
 H, v_head), wo (H, v_head, d); an "mlp" FFN ln2, w_gate/w_up (d, d_ff),
-w_down (d_ff, d).  With the same layout, weights carried over from the JAX
-package (``convert.params_from_numpy``) compute the same function.
+w_down (d_ff, d); a "moe" FFN ln2, router (d, E), w_gate/w_up (E, d,
+d_ff_expert), w_down (E, d_ff_expert, d) and, with shared experts,
+shared_gate/shared_up (d, n_shared * d_ff_expert), shared_down
+(n_shared * d_ff_expert, d).  With the same layout, weights carried over
+from the JAX package (``convert.params_from_numpy``) compute the same
+function.
 """
 
 from __future__ import annotations
@@ -52,10 +56,20 @@ class Model:
                             dtype=torch.float32)
             return (w * 0.02).to(dt)
 
+        def experts(*shape):
+            """(E, a, b) expert weights (after any leading stack dim),
+            drawn one expert at a time: one f32 draw of every expert at
+            once would need a temporary twice the leaf's size."""
+            w = torch.empty(shape, dtype=dt, device=dev)
+            for idx in np.ndindex(*shape[:-2]):
+                w[idx] = dense(*shape[-2:])
+            return w
+
         def layer(mixer, ffn, stack=0):
-            if mixer not in ("attn", "mla") or ffn not in ("mlp", "none"):
+            if mixer not in ("attn", "mla") or ffn not in ("mlp", "moe",
+                                                           "none"):
                 raise ValueError(f"the port supports attn/mla layers with "
-                                 f"mlp/none FFNs, got {(mixer, ffn)}")
+                                 f"mlp/moe/none FFNs, got {(mixer, ffn)}")
             lead = (stack,) if stack else ()
             d, H, KV, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                             cfg.resolved_head_dim)
@@ -87,6 +101,17 @@ class Model:
                          w_gate=dense(*lead, d, cfg.d_ff),
                          w_up=dense(*lead, d, cfg.d_ff),
                          w_down=dense(*lead, cfg.d_ff, d))
+            elif ffn == "moe":
+                E, fe = cfg.num_experts, cfg.d_ff_expert
+                p.update(ln2=ones(d), router=dense(*lead, d, E),
+                         w_gate=experts(*lead, E, d, fe),
+                         w_up=experts(*lead, E, d, fe),
+                         w_down=experts(*lead, E, fe, d))
+                if cfg.num_shared_experts:
+                    fs = cfg.num_shared_experts * fe
+                    p.update(shared_gate=dense(*lead, d, fs),
+                             shared_up=dense(*lead, d, fs),
+                             shared_down=dense(*lead, fs, d))
             return p
 
         return {
@@ -183,11 +208,12 @@ class Model:
 
     # ------------------------------------------------------------------
     def supports_paged(self) -> bool:
-        """Paged serving covers pure-attention stacks with mlp or no FFNs
-        (MoE is not ported), rope or no positional encoding and no
-        modality frontend."""
+        """Paged serving covers pure-attention stacks (any FFN) with rope
+        or no positional encoding and no modality frontend, as the
+        reference's: recurrent mixers have no paged state and sinusoidal
+        embeds would need per-sequence position offsets."""
         cfg = self.cfg
-        return (all(m == "attn" and f in ("mlp", "none") for m, f in
+        return (all(m == "attn" for m, _ in
                     cfg.prefix_pattern + cfg.unit_pattern)
                 and cfg.positional in ("rope", "none")
                 and cfg.frontend == "none")

@@ -1,15 +1,15 @@
-"""Layer assembly: attention + SwiGLU blocks, the prefix layers, then
-``num_units`` repetitions of the unit pattern.  Unit parameters, caches
+"""Layer assembly: attention + SwiGLU or MoE blocks, the prefix layers,
+then ``num_units`` repetitions of the unit pattern.  Unit parameters, caches
 and page pools carry a leading ``num_units`` dim, as in the reference; a
 Python loop over units takes the place of ``lax.scan``.
 
 Full-sequence forward (``stack_apply``): "attn" (GQA) and "mla" mixers,
-"mlp" and "none" FFNs.  Paged serving (``stack_apply_paged``): "attn"
-mixers.
+"mlp", "moe" and "none" FFNs.  Paged serving (``stack_apply_paged``):
+"attn" mixers with any of those FFNs.
 
 Mode "verify" (speculative decoding) carries the hidden states as a list
 of slabs (S, 1, d) of window rows and runs every row-wise op (norms,
-projections, rope, MLP) once per slab.  GEMM and reduction libraries
+projections, rope, MLP, MoE) once per slab.  GEMM and reduction libraries
 choose their summation order by shape, so a verify row then computes
 bitwise what an S-lane decode step computes for the same token at the same
 position; only attention sees the whole window."""
@@ -22,8 +22,18 @@ from repro_torch.models.attention import (gqa_apply, gqa_decode_paged,
                                          gqa_prefill_paged, gqa_verify_paged,
                                          mla_apply)
 from repro_torch.models.layers import mlp, rms_norm
+from repro_torch.models.moe import moe_apply
 
 MIXERS = {"attn": gqa_apply, "mla": mla_apply}
+FFNS = ("mlp", "moe", "none")
+
+
+def _ffn(x, lp, ffn, cfg):
+    """x plus the layer's FFN of its normed input (none: x)."""
+    if ffn == "none":
+        return x
+    h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    return x + (mlp(h, lp) if ffn == "mlp" else moe_apply(h, lp, cfg))
 
 
 def layer_apply(x, lp, mixer, ffn, cfg, mode, cache=None, index=None):
@@ -31,16 +41,13 @@ def layer_apply(x, lp, mixer, ffn, cfg, mode, cache=None, index=None):
     if mixer not in MIXERS:
         raise ValueError(f"the port's full-sequence forward supports "
                          f"{sorted(MIXERS)} mixers, got {mixer!r}")
-    if ffn not in ("mlp", "none"):
-        raise ValueError(f"the port's full-sequence forward supports 'mlp' "
-                         f"and 'none' FFNs, got {ffn!r}")
+    if ffn not in FFNS:
+        raise ValueError(f"the port's full-sequence forward supports "
+                         f"{FFNS} FFNs, got {ffn!r}")
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     mix_out, new_cache = MIXERS[mixer](h, lp, cfg, mode, cache=cache,
                                        index=index)
-    x = x + mix_out
-    if ffn == "mlp":
-        x = x + mlp(rms_norm(x, lp["ln2"], cfg.norm_eps), lp)
-    return x, new_cache
+    return _ffn(x + mix_out, lp, ffn, cfg), new_cache
 
 
 def unit_apply(x, unit_params, cfg, mode, unit_caches=None, index=None):
@@ -94,17 +101,16 @@ def layer_apply_paged(x, lp, mixer, ffn, cfg, mode, pages, tables, pos,
     if mixer != "attn":
         raise ValueError(
             f"paged serving supports 'attn' mixers only, got {mixer!r}")
-    if ffn not in ("mlp", "none"):
-        raise ValueError(f"paged serving supports 'mlp' FFNs only, got "
+    if ffn not in FFNS:
+        raise ValueError(f"paged serving supports {FFNS} FFNs, got "
                          f"{ffn!r}")
     if mode == "verify":
+        # the FFN once per slab: each slab is a call of the decode step's
+        # shape, so a verify row computes bitwise what a decode row does
         h = [rms_norm(xs, lp["ln1"], cfg.norm_eps) for xs in x]
         mix_out, new_pages = gqa_verify_paged(h, lp, cfg, pages, tables, pos)
-        x = [xs + m for xs, m in zip(x, mix_out)]
-        if ffn == "mlp":
-            x = [xs + mlp(rms_norm(xs, lp["ln2"], cfg.norm_eps), lp)
-                 for xs in x]
-        return x, new_pages
+        return [_ffn(xs + m, lp, ffn, cfg)
+                for xs, m in zip(x, mix_out)], new_pages
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     if mode == "prefill":
         mix_out, new_pages = gqa_prefill_paged(h, lp, cfg, pages, tables,
@@ -115,10 +121,7 @@ def layer_apply_paged(x, lp, mixer, ffn, cfg, mode, pages, tables, pos,
     else:
         raise ValueError(f"unknown paged mode {mode!r} "
                          "(prefill | decode | verify)")
-    x = x + mix_out
-    if ffn == "mlp":
-        x = x + mlp(rms_norm(x, lp["ln2"], cfg.norm_eps), lp)
-    return x, new_pages
+    return _ffn(x + mix_out, lp, ffn, cfg), new_pages
 
 
 def stack_apply_paged(x, params, cfg, mode, pages, tables, pos, n=None,

@@ -51,7 +51,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.archs import reduced_config
-from repro_torch.configs.base import get_config
+from repro_torch.configs.base import ModelConfig, get_config
 from repro_torch.models.convert import (from_host, to_host, tree_leaves,
                                         tree_map)
 from repro_torch.models.model import build_model, verify_slabs
@@ -74,11 +74,14 @@ class PagedTorchBackend(Backend):
                  temperature: float = 0.0, top_k: int = 0,
                  overhead: float = 1e-4, interpret: bool = True,
                  tp: int = 1, devices=None, fused: bool = True,
-                 drafter=None, device=None, reduced: bool = True):
+                 drafter=None, device=None, reduced: bool = True,
+                 config: Optional[ModelConfig] = None):
         """Keyword arguments as the reference's, plus ``device`` (None means
         "cuda", and raises RuntimeError without CUDA; the CPU runs the plain
-        PyTorch versions of the kernels) and ``reduced`` (True: the reduced
-        CPU-test config; False: the full published width).  ``drafter``
+        PyTorch versions of the kernels), ``reduced`` (True: the reduced
+        CPU-test config; False: the full published width) and ``config``
+        (a ``ModelConfig`` served in place of ``arch`` and ``reduced``,
+        e.g. a published width at a cut depth).  ``drafter``
         proposes speculative drafts (default ``NgramDrafter()``).
         ``interpret`` and ``devices`` are accepted for the reference's
         signature and unused: the CUDA kernels have no interpret mode, and
@@ -94,13 +97,15 @@ class PagedTorchBackend(Backend):
                     "PyTorch path")
             device = "cuda"
         self.device = torch.device(device)
-        self.cfg = reduced_config(arch) if reduced else get_config(arch)
+        if config is None:
+            config = reduced_config(arch) if reduced else get_config(arch)
+        self.cfg = config
         self.model = build_model(self.cfg)
         if not self.model.supports_paged():
             raise ValueError(
-                f"{arch}: paged serving needs a pure-attention stack with "
-                "mlp/none FFNs and rope/none positions (recurrent mixers have "
-                "no paged state; MoE is not ported)")
+                f"{self.cfg.name}: paged serving needs a pure-attention "
+                "stack with rope/none positions and no modality frontend "
+                "(recurrent mixers have no paged state)")
         self.sampler = Sampler(temperature=temperature, top_k=top_k,
                                seed=seed)
         self.drafter = drafter if drafter is not None else NgramDrafter()

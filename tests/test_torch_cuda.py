@@ -3,10 +3,10 @@ version (the verify kernel also bitwise against chained decode-kernel
 launches, the attend-only kernel bitwise the fused one, a lane alone
 bitwise among 64, contexts across the paged kernels' chunk edges), the
 reduced model's token streams equal across attention modes, decode
-horizons and speculation, the flash kernel's causal mask, and the reduced
-full-sequence forward on the card equal to the CPU's, a 2-replica
-reduced fleet (disaggregated and routed) with merged streams equal to one
-replica's, and the migration round trip bitwise.
+horizons and speculation, the flash kernel's causal mask, the reduced
+full-sequence forward on the card equal to the CPU's (MoE stacks among
+them), a 2-replica reduced fleet (disaggregated and routed) with merged
+streams equal to one replica's, and the migration round trip bitwise.
 Marked ``cuda``; skips without a GPU.  Run on the GPU machine with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -112,6 +112,8 @@ def _chunk_ctxs(C, cap):
     (torch.float32, 1e-5, 24, 8, 128),
     (torch.bfloat16, 2e-2, 56, 8, 128),      # G = 7 (yi widths)
     (torch.float32, 1e-5, 56, 8, 128),
+    (torch.bfloat16, 2e-2, 64, 8, 128),      # G = 8 (kimi-k2 widths)
+    (torch.float32, 1e-5, 64, 8, 128),
 ])
 def test_decode_kernels_across_chunk_edges(cuda, dtype, atol, H, KV, D):
     """Contexts across the chunk edges up to the table's capacity (4
@@ -215,6 +217,9 @@ def test_lane_alone_equals_lane_among_64(cuda):
      [9, 9, 9], None),
     (torch.float32, 1e-5, 2, 4, 24, 8, 128, 16, [127, 257], [4, 3], None),
     (torch.bfloat16, 2e-2, 2, 3, 56, 8, 128, 16, [128, 382], [3, 3], None),
+    # kimi-k2's widths (G = 8, D = 128) in the serving call
+    (torch.bfloat16, 2e-2, 8, 5, 64, 8, 128, 16,
+     [1, 15, 16, 17, 32, 33, 48, 52], [5, 2, 5, 1, 4, 5, 3, 5], 64),
 ])
 def test_verify_kernel_matches_plain_and_chained_decode(
         cuda, dtype, atol, B, W, H, KV, D, page, ctxs, widths, lanes):
@@ -339,7 +344,7 @@ def test_reduced_model_streams_equal_across_modes(cuda):
 # the bf16 (tensor-core) body at every head-dim pair it is built for, GQA
 # groups of 1, 3 and 8, S of one key, a ragged tile and a long ragged run
 _HEAD_DIMS = [(64, 64), (96, 64), (128, 128), (64, 128), (96, 128),
-              (128, 64), (16, 16), (24, 16)]
+              (128, 64), (16, 16), (24, 16), (192, 128)]
 _BF16_SWEEP = [(torch.bfloat16, causal, 1 if S > 100 else 2, S, 2 * G, 2, Dk,
                 Dv)
                for Dk, Dv in _HEAD_DIMS for G in (1, 3, 8)
@@ -358,6 +363,8 @@ _BF16_SWEEP = [(torch.bfloat16, causal, 1 if S > 100 else 2, S, 2 * G, 2, Dk,
     (torch.bfloat16, True, 2, 200, 40, 40, 96, 64),  # MLA head dims
     (torch.float32, True, 2, 33, 4, 4, 24, 16),      # reduced MLA dims
     (torch.float32, True, 3, 1, 4, 2, 64, 64),       # S = 1
+    (torch.float32, True, 1, 300, 16, 16, 192, 128),  # deepseek MLA dims
+    (torch.float32, False, 2, 77, 4, 2, 192, 128),
 ] + _BF16_SWEEP)
 def test_flash_kernel_matches_plain_version(cuda, dtype, causal, B, S, H,
                                             KV, Dk, Dv):
@@ -382,7 +389,7 @@ def test_flash_kernel_matches_plain_version(cuda, dtype, causal, B, S, H,
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("Dk,Dv", [(64, 64), (96, 64)])
+@pytest.mark.parametrize("Dk,Dv", [(64, 64), (96, 64), (192, 128)])
 @pytest.mark.parametrize("i", [100, 127, 128])
 def test_flash_kernel_causal_mask(cuda, dtype, Dk, Dv, i):
     """Causality on the card: K/V changed at positions past i leave rows
@@ -411,7 +418,8 @@ def test_flash_kernel_causal_mask(cuda, dtype, Dk, Dv, i):
     assert (at_i[:, i] != out[:, i]).any(dim=-1).all()
 
 
-@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "minicpm3-4b"])
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "minicpm3-4b",
+                                  "kimi-k2-1t-a32b", "deepseek-v2-lite-16b"])
 def test_reduced_fullseq_forward_on_card_matches_cpu(cuda, arch):
     """Reduced f32 model: logits, prefill and decode_step on the card
     within 1e-4 of the CPU's, with one flash launch per layer per

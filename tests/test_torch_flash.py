@@ -108,10 +108,10 @@ def test_tensor_map_check_takes_every_head_dim_pair(Dk, Dv):
     fa._check_tma(q, k, torch.zeros(2, 77, 2, Dv, dtype=torch.bfloat16))
 
 
-@pytest.mark.parametrize("D", [4, 12, 192])
+@pytest.mark.parametrize("D", [4, 12, 256])
 def test_tensor_map_check_rejects_what_a_tensor_map_cannot_take(D):
     """Byte strides that are not multiples of 16 (D of 4 or 12) and head
-    dims past two 64-wide panels raise ``ValueError``."""
+    dims past three 64-wide panels raise ``ValueError``."""
     t = torch.zeros(1, 8, 2, D, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         fa._check_tma(t, t, t)

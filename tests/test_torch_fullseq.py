@@ -185,7 +185,7 @@ def test_decode_step_matches_paged_decode():
 
 
 @pytest.mark.parametrize("pattern", [(("mamba", "mlp"),),
-                                     (("attn", "moe"),)])
+                                     (("mlstm", "none"),)])
 def test_unported_layers_raise(pattern):
     cfg = dataclasses.replace(reduced_config("tinyllama-1.1b"),
                               unit_pattern=pattern)

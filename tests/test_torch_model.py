@@ -118,13 +118,13 @@ def test_prefill_then_decode_matches_reference(models, fused):
 
 
 @pytest.mark.parametrize("ffn,paged", [("mlp", True), ("none", True),
-                                       ("moe", False)])
+                                       ("moe", True)])
 def test_supports_paged_agrees_with_layer_apply_paged(ffn, paged,
                                                      monkeypatch):
-    """A hand-built attn stack: the predicate says True exactly where
-    ``layer_apply_paged`` takes the layer (MoE is not ported, so an
-    attn+moe stack is refused by both), and ``PagedTorchBackend`` refuses
-    what the predicate refuses."""
+    """A hand-built attn stack: the predicate says True for every FFN, as
+    the reference's does, exactly where ``layer_apply_paged`` takes the
+    layer (one decode step through it gives finite rows of the input's
+    shape), and ``PagedTorchBackend`` takes the stack."""
     import dataclasses
 
     from repro_torch.configs.base import ModelConfig
@@ -136,16 +136,25 @@ def test_supports_paged_agrees_with_layer_apply_paged(ffn, paged,
                       vocab_size=64, unit_pattern=(("attn", ffn),),
                       num_experts=4 if ffn == "moe" else 0,
                       top_k=2 if ffn == "moe" else 0,
-                      d_ff_expert=32 if ffn == "moe" else 0)
-    assert build_model(cfg).supports_paged() is paged
-    if not paged:
-        with pytest.raises(ValueError, match="FFN"):
-            layer_apply_paged(torch.zeros(1, 1, 32), {}, "attn", ffn, cfg,
-                              "decode", None, None, None)
-        monkeypatch.setattr(torch_backend, "get_config", lambda name: cfg)
-        with pytest.raises(ValueError, match="MoE"):
-            torch_backend.PagedTorchBackend(arch=cfg.name, reduced=False,
-                                            device="cpu")
-    # the predicate looks at the FFN only where the mixer is attn
+                      d_ff_expert=32 if ffn == "moe" else 0,
+                      dtype="float32")
+    model = build_model(cfg)
+    assert model.supports_paged() is paged
+    params = model.init(torch.Generator().manual_seed(0))
+    pages = model.init_paged_caches(5, 4, "cpu")
+    lp = {name: leaf[0] for name, leaf in params["units"]["l0"].items()}
+    up = {name: leaf[0] for name, leaf in pages["units"]["l0"].items()}
+    x = params["embed"][torch.tensor([[3], [7]])]
+    out, _ = layer_apply_paged(x, lp, "attn", ffn, cfg, "decode", up,
+                               torch.tensor([[0, 1], [2, 3]],
+                                            dtype=torch.int32),
+                               torch.tensor([0, 2], dtype=torch.int32),
+                               fused=True)
+    assert out.shape == x.shape and bool(torch.isfinite(out).all())
+    monkeypatch.setattr(torch_backend, "get_config", lambda name: cfg)
+    be = torch_backend.PagedTorchBackend(arch=cfg.name, reduced=False,
+                                         device="cpu")
+    assert be.cfg is cfg and be.model.supports_paged()
+    # the predicate refuses stacks whose mixers are not attn
     mla = dataclasses.replace(cfg, unit_pattern=(("mla", "mlp"),))
     assert not build_model(mla).supports_paged()

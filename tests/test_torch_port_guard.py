@@ -28,6 +28,10 @@ VERBATIM = [
     "serving/request.py", "serving/kvcache.py", "serving/workload.py",
     "serving/metrics.py", "serving/engine.py", "serving/drafter.py",
     "configs/base.py", "configs/tinyllama_1p1b.py", "configs/minicpm3_4b.py",
+    "configs/deepseek_v2_lite_16b.py", "configs/kimi_k2_1t_a32b.py",
+    "configs/yi_34b.py", "configs/minitron_4b.py",
+    "configs/jamba_v0p1_52b.py", "configs/xlstm_1p3b.py",
+    "configs/musicgen_medium.py", "configs/pixtral_12b.py", "configs/archs.py",
     "cluster/__init__.py", "cluster/engine.py", "cluster/router.py",
     "cluster/autoscaler.py", "launch/dashboard.py",
 ]
@@ -57,6 +61,7 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
             "repro_torch.launch.steps",
             "repro_torch.launch.serve",
             "repro_torch.models.attention",
+            "repro_torch.models.moe",
             "repro_torch.examples",
             "repro_torch.examples.quickstart",
             "repro_torch.examples.serve_cluster",
