@@ -50,6 +50,18 @@ equal too), the bf16 serving dtype at full depth through
 ``make_prefill_step`` / ``make_serve_step`` (8 greedy tokens, a profiled
 prefill forward with the flash kernel's and the MoE's shares), and the
 flash kernel's times at the three prefill shapes.
+Then training: the flash backward kernel against its plain version (every
+head-dim pair of ``BWD_HEAD_DIMS``, S from 1 to 2048, causal and full, f32
+and bf16, G = 1 and 8; the forward's log-sum-exp; two calls bitwise equal)
+and ``FlashAttentionFn`` against autograd through the plain forward; an
+f32 step of full-width tinyllama-1.1b cut to 2 layers on the card against
+the CPU (loss and every gradient, each non-zero); the main path:
+full-width tinyllama-1.1b in bf16 at B=8, S=2048 with remat and AdamW,
+10 steps through ``make_accum_train_step`` (the loss must fall; step time,
+tokens/s, model TFLOP/s, peak memory, flash launches per step, one
+profiled step); the restart drill (``TrainSupervisor.run_with_recovery``
+in f32, depth cut to 1: one restart, final params equal to the clean
+run's); and the backward's and the training-shape forward's times.
 Prints the card, the checks, one JSON line of kernel records and,
 last, one JSON line naming the device.  Exits non-zero, with no result
 lines, on any failed check, when CUDA is unavailable, or outside a checkout.
@@ -58,6 +70,7 @@ Imports nothing of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -79,6 +92,39 @@ REPLACES = {"fused_decode_attention": "src/repro/kernels/paged_attention.py:147"
             "fused_verify_attention": "src/repro/kernels/paged_attention.py:290"}
 FLASH_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention.py:64"
+BWD_SOURCE = "src/repro_torch/csrc/flash_attention_bwd.cu"
+# the backward replaces no pallas_call: it is the port's counterpart of the
+# gradient XLA takes of the reference's training attention, online_attention
+BWD_REPLACES = "src/repro/models/attention.py:34"
+# training: the main path's model, (B, S) (S: TinyLlama's pretraining
+# length), steps and learning rate; the depths the f32 card-vs-CPU step and
+# the restart drill cut it to (full width)
+TRAIN_ARCH = "tinyllama-1.1b"
+TRAIN_SHAPE = (8, 2048)
+TRAIN_STEPS = 10
+TRAIN_LR = 3e-4
+CHECK_LAYERS = 2
+DRILL_LAYERS = 1
+# the backward kernel's sweep lengths, and its tolerances against the
+# plain version: f32 2e-5 of the tensor's largest value (at least 1): sums
+# of up to 2048 x 8 products in another order (f32 FMAs against cuBLAS
+# GEMMs); bf16 one ulp (2^-7 of the value bounds it) plus 1e-4 for that f32
+# noise under values that round to small ones
+BWD_S = (1, 63, 65, 200, 1024, 2048)
+BWD_F32_RTOL = 2e-5
+BWD_BF16_ATOL = 1e-4
+# card-vs-CPU f32 gradients: max |difference| over each leaf's largest CPU
+# value (sums over d = 2048 / 5632 and 512 tokens in other orders)
+TRAIN_GRAD_RTOL = 1e-4
+# the bf16 witness at full width and depth: the kernels' gradients against
+# autograd through the plain attention on the same weights and batch, max
+# |difference| over each leaf's largest plain value.  A bf16 ulp is 2^-8
+# of the value; the kernel rounds P to bf16 before P.V and the two paths'
+# bf16 activations then round apart in each of the 22 layers, so 5e-2;
+# a lost or mis-scaled term moves a gradient by the order of its size.
+# The losses within 1e-3 of the plain one (f32 sums of bf16 logits' inputs)
+BF16_GRAD_RTOL = 5e-2
+BF16_LOSS_RTOL = 1e-3
 # the full-sequence models: (B, S) of the f32 checks and of the bf16 runs
 FULLSEQ = {"tinyllama-1.1b": ((4, 512), (4, 1024)),
            "minicpm3-4b": ((2, 256), (2, 1024)),
@@ -1339,12 +1385,14 @@ def ptxas_entries(log, pattern):
 def ptxas_report(log, fa) -> None:
     """Registers and spills of each bf16 flash kernel instance, from the
     build's ``-Xptxas -v`` report, beside its dynamic shared memory.  An
-    instance holds QP panels of 64 Dk columns and VP of 64 Dv columns."""
+    instance holds QP panels of 64 Dk columns and VP of 64 Dv columns, and
+    stores the log-sum-exp for the backward or not."""
     for m, regs, spills in ptxas_entries(
-            log, r"flash_wgmma_kernelILi(\d)ELi(\d)E"):
+            log, r"flash_wgmma_kernelILi(\d)ELi(\d)ELb([01])E"):
         qp, vp = int(m.group(1)), int(m.group(2))
-        print(f"  flash_wgmma_kernel<{qp}, {vp}> (Dk <= {64 * qp}, Dv <= "
-              f"{64 * vp}): {regs} registers, {spills}, dynamic shared "
+        lse = " with the lse store" if m.group(3) == "1" else ""
+        print(f"  flash_wgmma_kernel<{qp}, {vp}>{lse} (Dk <= {64 * qp}, Dv "
+              f"<= {64 * vp}): {regs} registers, {spills}, dynamic shared "
               f"memory {fa.smem_bytes(64 * qp, 64 * vp)} B, 128 threads")
     check(log == "" or "flash_wgmma_kernel" in log,
           "no bf16 flash kernel in the build's ptxas report")
@@ -1639,6 +1687,592 @@ def flash_times(torch, fa, flush) -> dict:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# training: the flash backward kernel, the f32 step on the card against the
+# CPU's, the main path at full width, the restart drill
+# ---------------------------------------------------------------------------
+def bwd_ptxas_report(log, fa) -> None:
+    """Registers, spills and dynamic shared memory of each instance of the
+    flash backward's dK/dV and dQ kernels (element type, Dk, Dv), from the
+    build's ``-Xptxas -v`` report."""
+    for m, regs, spills in ptxas_entries(
+            log, r"(dkdv_kernel|dq_kernel)I(13__nv_bfloat16|f)Li(\d+)ELi(\d+)E"):
+        Dk, Dv = int(m.group(3)), int(m.group(4))
+        smem = fa.bwd_smem_bytes(Dk, Dv)[m.group(1) == "dq_kernel"]
+        print(f"  {m.group(1)}<{'bf16' if m.group(2) != 'f' else 'f32'}, "
+              f"{Dk}, {Dv}>: {regs} registers, {spills}, dynamic shared "
+              f"memory {smem} B, 256 threads")
+    check(log == "" or ("dkdv_kernel" in log and "dq_kernel" in log),
+          "no flash backward kernels in the build's ptxas report")
+
+
+def _within_bwd(got, ref, dtype) -> bool:
+    """f32: within BWD_F32_RTOL of the tensor's largest value (at least
+    1); bf16: within one bf16 ulp (2^-7 of the value bounds it) plus
+    BWD_BF16_ATOL."""
+    diff = (got.float() - ref.float()).abs()
+    if dtype == "float32":
+        return diff.max().item() <= BWD_F32_RTOL * max(
+            1.0, ref.abs().max().item())
+    return bool((diff <= ref.float().abs() * 2 ** -7 + BWD_BF16_ATOL).all())
+
+
+def check_bwd_case(torch, fa, case, dtype, seed) -> float:
+    """One backward case: the forward's lse against a plain logsumexp of
+    the scores (1e-4), the kernel against ``flash_attention_bwd_ref`` on
+    the same inputs, two calls bitwise equal.  Returns the largest
+    difference of dq, dk, dv; exits on a failed check."""
+    B, S, H, KV, Dk, Dv, causal = case
+    q, k, v = flash_inputs(torch, B, S, H, KV, Dk, Dv, dtype, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    do = torch.randn((B, S, H, Dv), generator=g, device="cuda").to(
+        getattr(torch, dtype))
+    o, lse = fa._forward(q, k, v, causal, Dk ** -0.5, with_lse=True)
+    lse_err = (lse - fa.flash_attention_lse_ref(q, k, causal=causal)).abs()
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    ref = fa.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    label = (f"{dtype} {'causal' if causal else 'full'} B={B} S={S} H={H} "
+             f"KV={KV} Dk={Dk} Dv={Dv}")
+    check(lse_err.max().item() <= 1e-4, f"flash lse {label}")
+    for name, a, b, r in zip(("dq", "dk", "dv"), got, again, ref):
+        check(tuple(a.shape) == tuple(r.shape) and a.dtype == r.dtype
+              and bool(torch.isfinite(a).all()), f"{name} {label}")
+        check(torch.equal(a, b), f"flash backward {name} not repeatable, "
+              f"{label}")
+        check(_within_bwd(a, r, dtype), f"flash backward {name} {label}: "
+              f"{(a.float() - r.float()).abs().max().item()}")
+    return max((a.float() - r.float()).abs().max().item()
+               for a, r in zip(got, ref))
+
+
+def check_bwd_all(torch, fa) -> None:
+    """The backward kernel over ``BWD_HEAD_DIMS`` x S in ``BWD_S`` x causal
+    and full x f32 and bf16 x G in {1, 8}, a line per group of S; then
+    ``FlashAttentionFn`` (both kernels) against torch autograd through
+    ``flash_attention_ref`` in f32.  (The training shape itself is checked
+    in ``bwd_times``.)"""
+    seed = 1000
+    for Dk, Dv in sorted(fa.BWD_HEAD_DIMS):
+        for dtype in ("float32", "bfloat16"):
+            for G in (1, 8):
+                for causal in (True, False):
+                    errs = []
+                    for S in BWD_S:
+                        KV = 2 if G == 1 else 1
+                        B = 2 if S <= 200 else 1
+                        seed += 2
+                        errs.append(check_bwd_case(
+                            torch, fa, (B, S, G * KV, KV, Dk, Dv, causal),
+                            dtype, seed))
+                    print(f"  {dtype} {'causal' if causal else 'full'} "
+                          f"Dk={Dk} Dv={Dv} G={G}, S {BWD_S}: dq/dk/dv "
+                          f"max|diff| " + " ".join(f"{e:.2e}" for e in errs)
+                          + "; lse within 1e-4; two calls bitwise equal")
+    tol = (f"tolerance f32 {BWD_F32_RTOL:g} of the largest value, bf16 one "
+           f"ulp + {BWD_BF16_ATOL:g}")
+    print(f"  ({tol})")
+    for Dk, Dv, causal in ((64, 64, True), (96, 64, False)):
+        q, k, v = flash_inputs(torch, 2, 300, 8, 2, Dk, Dv, "float32", 77)
+        do = torch.randn((2, 300, 8, Dv), device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(78))
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        ref_leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = fa.flash_attention(*leaves, causal=causal)
+        check(type(out.grad_fn).__name__ == "FlashAttentionFnBackward",
+              "flash_attention with grad did not go through FlashAttentionFn")
+        got = torch.autograd.grad(out, leaves, do)
+        ref = torch.autograd.grad(
+            fa.flash_attention_ref(*ref_leaves, causal=causal), ref_leaves,
+            do)
+        err = max((a - b).abs().max().item() for a, b in zip(got, ref))
+        print(f"  FlashAttentionFn f32 Dk={Dk} Dv={Dv} "
+              f"{'causal' if causal else 'full'} B=2 S=300 H=8 KV=2: "
+              f"gradients vs autograd through flash_attention_ref max|diff| "
+              f"{err:.3e} (tolerance {BWD_F32_RTOL:g} of the largest, at "
+              "least 1)")
+        check(all(_within_bwd(a, b, "float32") for a, b in zip(got, ref)),
+              "FlashAttentionFn gradients")
+
+
+@contextlib.contextmanager
+def plain_attention(fa):
+    """While the block runs, the models' causal attention is autograd
+    through ``flash_attention_ref`` (the plain version) on the card: the
+    reference the kernels' bf16 gradients and loss curve are held
+    against."""
+    from repro_torch.models import attention
+    kernel = attention.causal_attention
+    attention.causal_attention = (
+        lambda q, k, v, *, scale: fa.flash_attention_ref(
+            q, k, v, causal=True, scale=scale))
+    try:
+        yield
+    finally:
+        attention.causal_attention = kernel
+
+
+def _train_batches(torch, cfg, B, S, n=None):
+    """``PackedLoader`` seed 0 batches on the card: a generator, or the
+    first n as a list."""
+    from repro_torch.data.pipeline import (DataConfig, PackedLoader,
+                                           device_batches)
+    it = device_batches(PackedLoader(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=S, global_batch=B, seed=0)),
+        "cuda")
+    return it if n is None else [next(it) for _ in range(n)]
+
+
+def train_vs_cpu(torch, fa) -> None:
+    """f32 tinyllama at full width, depth cut to ``CHECK_LAYERS``, B=2,
+    S=256: the loss and every gradient on the card (flash forward and
+    backward kernels) against the CPU's (plain versions), same weights and
+    batch; every card gradient finite and non-zero (wq/wk/wv too: without
+    ``FlashAttentionFn`` the kernel's output had no gradient); the
+    ``make_train_step`` step's loss bitwise the gradient pass's."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.steps import make_train_step, value_and_grad
+    from repro_torch.models.convert import tree_map
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), dtype="float32",
+                              num_layers=CHECK_LAYERS)
+    model, opt, step = make_train_step(cfg, lr=TRAIN_LR)
+    cpu = model.init(torch.Generator().manual_seed(0))
+    dev = tree_map(lambda t: t.to("cuda"), cpu)
+    batch = _train_batches(torch, cfg, 2, 256, 1)[0]
+    before = fa.launches["flash_attention_bwd"]
+    loss, grads = value_and_grad(model.loss, dev, batch)
+    torch.cuda.synchronize()
+    launched = fa.launches["flash_attention_bwd"] - before
+    ref_loss, ref = value_and_grad(model.loss, cpu, {
+        k: t.cpu() for k, t in batch.items()})
+    worst, names = 0.0, []
+
+    def leaf(path, g, r):
+        nonlocal worst
+        g = g.cpu()
+        check(bool(torch.isfinite(g).all()) and bool(g.abs().sum() > 0),
+              f"card gradient of {path} is not finite and non-zero")
+        rel = ((g - r).abs().max() / r.abs().max()).item()
+        worst = max(worst, rel)
+        names.append(path)
+        check(rel <= TRAIN_GRAD_RTOL, f"card gradient of {path}: "
+              f"{rel:.3e} of its largest CPU value")
+
+    for lay, d in grads["units"].items():
+        for name, g in d.items():
+            leaf(f"units/{lay}/{name}", g, ref["units"][lay][name])
+    for name in ("embed", "final_norm", "lm_head"):
+        leaf(name, grads[name], ref[name])
+    _, _, step_loss = step(dev, opt.init(dev), batch)
+    dl = abs(loss.item() - ref_loss.item())
+    print(f"  f32 {TRAIN_ARCH} full width, depth CUT to {CHECK_LAYERS} of "
+          f"22, B=2 S=256: loss card {loss.item():.6f} vs CPU "
+          f"{ref_loss.item():.6f} (|diff| {dl:.2e}, tolerance 1e-5 x "
+          f"loss); {len(names)} gradient leaves, each finite and non-zero "
+          f"on the card (units/l0/wq/wk/wv among them), max|card - CPU| "
+          f"{worst:.2e} of each leaf's largest CPU value (tolerance "
+          f"{TRAIN_GRAD_RTOL:g}); {launched} flash backward launches; "
+          f"make_train_step's loss bitwise the gradient pass's: "
+          f"{torch.equal(step_loss, loss)}")
+    check(dl <= 1e-5 * abs(ref_loss.item()), "card loss vs CPU loss")
+    check(launched == CHECK_LAYERS, f"{launched} flash backward launches, "
+          f"want {CHECK_LAYERS}")
+    check(torch.equal(step_loss, loss), "make_train_step's loss is not the "
+          "gradient pass's")
+    check({"units/l0/wq", "units/l0/wk", "units/l0/wv"} <= set(names),
+          "q/k/v gradients not checked")
+
+
+def train_profile(torch, model, opt, params, state, batch):
+    """One main-path step under the profiler: device busy time as the sum
+    of the device's own rows (kernels, copies, fills), kernels sorted by
+    name into the flash forward and backward and the bf16 and f32 GEMMs
+    (the f32 ones are the lm_head's), the optimizer's update timed by
+    CUDA events around it.  Returns
+    (params, state, wall ms, busy ms, {share: ms})."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    events_opt = []
+
+    def update(*args):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = opt.update(*args)
+        b.record()
+        events_opt.append((a, b))
+        return out
+
+    from repro_torch.launch.train import make_accum_train_step
+    prof_step = make_accum_train_step(
+        model, dataclasses.replace(opt, update=update))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, state, loss = prof_step(params, state, batch)
+        loss.item()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def dev_us(e):
+        return getattr(e, "device_time_total", None) \
+            or getattr(e, "cuda_time_total", 0.0)
+
+    # the device's own rows (kernels, copies, fills): a CPU row's device
+    # time is that of the kernels it launched, counted in their own rows
+    kernels = [e for e in prof.key_averages()
+               if e.device_type != DeviceType.CPU and dev_us(e) > 0]
+    busy = sum(dev_us(e) for e in kernels) / 1e3
+    shares = {"flash forward": 0.0, "flash backward": 0.0,
+              "f32 GEMMs (lm_head)": 0.0, "bf16 GEMMs": 0.0}
+    for e in kernels:
+        k, ms = e.key.lower(), dev_us(e) / 1e3
+        if "flash_wgmma_kernel" in k or "flash_kernel" in k:
+            shares["flash forward"] += ms
+        elif "dkdv_kernel" in k or "dq_kernel" in k or "delta_kernel" in k:
+            shares["flash backward"] += ms
+        elif any(s in k for s in ("gemm", "xmma", "nvjet", "cutlass")):
+            f32 = any(s in k for s in ("sgemm", "f32f32_f32f32", "simt",
+                                       "fp32", "_s1688", "sm90_xmma_gemm_f32"))
+            shares["f32 GEMMs (lm_head)" if f32 else "bf16 GEMMs"] += ms
+    a, b = events_opt[0]
+    shares["optimizer (CUDA events)"] = a.elapsed_time(b)
+    top = sorted(kernels, key=dev_us, reverse=True)[:10]
+    for e in top:
+        print(f"    {dev_us(e) / 1e3:.3f} ms x{e.count} {e.key[:90]}")
+    return params, state, wall_ms, busy, shares
+
+
+def train_main(torch, fa, card) -> dict:
+    """The main path: tinyllama-1.1b at full width and depth in bf16, remat
+    on, AdamW, ``PackedLoader`` seed 0 at B=8, S=2048, ``TRAIN_STEPS``
+    steps through ``make_accum_train_step``, flash launches counted from 0
+    just before and read just after; the loss must fall.  Before them, one
+    gradient pass on the first batch: every parameter leaf's gradient
+    finite and non-zero (wq/wk/wv reach the loss only through the flash
+    kernels).  After them, one profiled step.  Returns the flash forward
+    and backward launches of the steps."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.steps import make_train_step, value_and_grad
+    from repro_torch.launch.train import make_accum_train_step
+
+    cfg = get_config(TRAIN_ARCH)
+    check(cfg.dtype == "bfloat16" and cfg.remat and cfg.optimizer == "adamw",
+          f"{TRAIN_ARCH} trains in bf16 with remat and AdamW")
+    B, S = TRAIN_SHAPE
+    model, opt, _ = make_train_step(cfg, lr=TRAIN_LR)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    state = (opt.init(params), None)
+    step_fn = make_accum_train_step(model, opt)
+    batches = _train_batches(torch, cfg, B, S)
+    first = next(batches)
+    loss0, grads = value_and_grad(model.loss, params, first)
+    # every leaf, and of a unit leaf every one of its 22 layers' slices
+    nonzero = {name: bool(torch.isfinite(grads[name]).all())
+               and bool(grads[name].abs().sum() > 0)
+               for name in ("embed", "final_norm", "lm_head")}
+    nonzero.update({f"units/l0/{n}": bool(torch.isfinite(g).all())
+                    and bool((g.flatten(1).abs().sum(1) > 0).all())
+                    for n, g in grads["units"]["l0"].items()})
+    bf16_witness(torch, fa, model, params, first, loss0, grads)
+    del grads
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches["flash_attention"] = fa.launches["flash_attention_bwd"] = 0
+    times, losses = [], []
+    for i in range(TRAIN_STEPS):
+        batch = first if i == 0 else next(batches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, loss = step_fn(params, state, batch)
+        losses.append(loss.item())
+        times.append(time.perf_counter() - t0)
+    launches = {k: fa.launches[k] for k in ("flash_attention",
+                                            "flash_attention_bwd")}
+    peak = torch.cuda.max_memory_allocated()
+    med = statistics.median(times[2:])
+    tokens = B * S
+    n_dense = cfg.param_count() - cfg.vocab_size * cfg.d_model  # no embed
+    pairs = S * (S + 1) // 2
+    attn = 12 * cfg.num_layers * B * cfg.num_heads * cfg.resolved_head_dim \
+        * pairs
+    flops = 6 * n_dense * tokens + attn
+    print(f"  {TRAIN_ARCH} bf16 full width and depth, remat, AdamW lr "
+          f"{TRAIN_LR:g}, PackedLoader seed 0, B={B} S={S}: {TRAIN_STEPS} "
+          f"steps through make_accum_train_step; step ms "
+          + " ".join(f"{t * 1e3:.1f}" for t in times)
+          + f"; median of steps 3..{TRAIN_STEPS} {med * 1e3:.3f} ms, "
+          f"{tokens / med:.0f} tokens/s, model {flops / 1e12:.2f} TFLOP a "
+          f"step (6 x {n_dense / 1e9:.3f}e9 non-embedding params x tokens "
+          f"+ causal attention), {flops / med / 1e12:.1f} TFLOP/s = "
+          f"{flops / med / BF16_FLOPS:.3f} of 989; peak allocated "
+          f"{peak / 2**30:.2f} GiB; loss first {losses[0]:.4f} last "
+          f"{losses[-1]:.4f} ({' '.join(f'{x:.3f}' for x in losses)}); "
+          f"flash launches per step: forward "
+          f"{launches['flash_attention'] / TRAIN_STEPS:g} (22 + 22 rerun by "
+          f"remat), backward {launches['flash_attention_bwd'] / TRAIN_STEPS:g}"
+          f"; a gradient pass before the steps: every leaf's gradient "
+          f"(each of the 22 layers' for unit leaves) finite and non-zero: "
+          f"{all(nonzero.values())} over {len(nonzero)} leaves ({card})")
+    check(all(torch.isfinite(torch.tensor(losses))), "non-finite loss")
+    check(losses[-1] < losses[0], "the training loss did not fall")
+    check(all(nonzero.values()), "zero or non-finite gradients: "
+          + ", ".join(k for k, ok in nonzero.items() if not ok))
+    check(launches["flash_attention_bwd"] == cfg.num_layers * TRAIN_STEPS
+          and launches["flash_attention"] == 2 * cfg.num_layers * TRAIN_STEPS,
+          f"flash launches {launches}")
+    params, state, wall_ms, busy, shares = train_profile(
+        torch, model, opt, params, state, next(batches))
+    print(f"  one profiled step: wall {wall_ms:.1f} ms, device busy "
+          f"{busy:.1f} ms (idle share {1 - busy / wall_ms:.3f}); "
+          + ", ".join(f"{k} {ms:.1f} ms ({ms / busy:.3f})"
+                      for k, ms in shares.items()))
+    check(busy > 0 and shares["flash backward"] > 0
+          and shares["flash forward"] > 0, "the profiler saw no flash "
+          "kernels in the training step")
+    del params, state, model
+    torch.cuda.empty_cache()
+    return launches, losses
+
+
+def bf16_witness(torch, fa, model, params, batch, loss, grads) -> None:
+    """The kernels' bf16 loss and gradients at full width and depth (the
+    main path's first batch and weights) against autograd through the
+    plain attention on the same weights and batch: the loss within
+    ``BF16_LOSS_RTOL``, each leaf (each layer's slice of a unit leaf)
+    within ``BF16_GRAD_RTOL`` of its largest plain value; the plain pass
+    launches no flash kernel."""
+    from repro_torch.launch.steps import value_and_grad
+
+    t0 = time.perf_counter()
+    before = dict(fa.launches)
+    with plain_attention(fa):
+        ref_loss, ref = value_and_grad(model.loss, params, batch)
+    torch.cuda.synchronize()
+    launched = sum(fa.launches[k] - before[k] for k in before)
+    pairs = [(n, grads[n], ref[n]) for n in ("embed", "final_norm",
+                                             "lm_head")]
+    for name, g in grads["units"]["l0"].items():
+        pairs += [(f"units/l0/{name}[{i}]", g[i], ref["units"]["l0"][name][i])
+                  for i in range(g.shape[0])]
+    rel = {n: ((g.float() - r.float()).abs().max()
+               / r.float().abs().max()).item() for n, g, r in pairs}
+    worst = max(rel, key=rel.get)
+    dl = abs(loss.item() - ref_loss.item())
+    print(f"  bf16 witness, full width and depth, B={batch['tokens'].shape[0]}"
+          f" S={batch['tokens'].shape[1]}, the main path's first batch and "
+          f"weights: loss kernels {loss.item():.6f} vs plain attention "
+          f"{ref_loss.item():.6f} (|diff| {dl:.2e}, tolerance "
+          f"{BF16_LOSS_RTOL:g} x loss); {len(rel)} gradient slices, max "
+          f"|kernels - plain| over the slice's largest plain value: worst "
+          f"{rel[worst]:.3e} ({worst}), median "
+          f"{statistics.median(rel.values()):.3e} (tolerance "
+          f"{BF16_GRAD_RTOL:g}); flash launches in the plain pass: "
+          f"{launched}; {time.perf_counter() - t0:.1f} s")
+    check(launched == 0, "the plain pass launched flash kernels")
+    check(dl <= BF16_LOSS_RTOL * abs(ref_loss.item()),
+          "bf16 loss: kernels vs plain attention")
+    check(rel[worst] <= BF16_GRAD_RTOL, f"bf16 gradient of {worst}: "
+          f"{rel[worst]:.3e} of its largest plain value")
+
+
+def plain_curve(torch, fa, losses) -> None:
+    """The main path's ``TRAIN_STEPS`` steps again (same seed-0 weights,
+    ``PackedLoader`` batches, AdamW and remat) with the attention through
+    the plain version: its loss curve beside the kernels' ``losses``.  Its
+    first loss is within ``BF16_LOSS_RTOL`` of the kernels' (same weights
+    and batch); the curves are printed side by side, so that a rise in
+    the kernels' curve the plain one shares is the optimizer's, not the
+    kernels'."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import make_accum_train_step
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(TRAIN_ARCH)
+    model, opt, _ = make_train_step(cfg, lr=TRAIN_LR)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    state = (opt.init(params), None)
+    step_fn = make_accum_train_step(model, opt)
+    batches = _train_batches(torch, cfg, *TRAIN_SHAPE)
+    before = dict(fa.launches)
+    plain = []
+    with plain_attention(fa):
+        for _ in range(TRAIN_STEPS):
+            params, state, loss = step_fn(params, state, next(batches))
+            plain.append(loss.item())
+    launched = sum(fa.launches[k] - before[k] for k in before)
+    diffs = [abs(a - b) for a, b in zip(losses, plain)]
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  the same {TRAIN_STEPS} steps with plain attention (autograd "
+          f"through flash_attention_ref): loss "
+          + " ".join(f"{x:.3f}" for x in plain) + " (kernels "
+          + " ".join(f"{x:.3f}" for x in losses) + "); |kernels - plain| "
+          "per step " + " ".join(f"{d:.3f}" for d in diffs)
+          + f"; flash launches {launched}; peak allocated "
+          f"{peak / 2**30:.2f} GiB; {time.perf_counter() - t0:.1f} s")
+    check(all(torch.isfinite(torch.tensor(plain))), "non-finite plain loss")
+    check(launched == 0, "the plain steps launched flash kernels")
+    check(diffs[0] <= BF16_LOSS_RTOL * abs(plain[0]),
+          "first loss: kernels vs plain attention")
+    del params, state, model
+    torch.cuda.empty_cache()
+
+
+def restart_drill(torch) -> None:
+    """``TrainSupervisor.run_with_recovery`` in f32 at full width, depth
+    cut to ``DRILL_LAYERS``, B=2, S=256, 6 steps, a checkpoint every 3
+    (npz under build/), a failure injected at step 4: it restarts once
+    from step 3 and its final params equal the clean run's within rtol
+    1e-6 (the reference test's)."""
+    import shutil
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.convert import tree_leaves
+    from repro_torch.training.checkpoint import CheckpointManager
+    from repro_torch.training.fault_tolerance import TrainSupervisor
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), dtype="float32",
+                              num_layers=DRILL_LAYERS)
+    model, opt, step = make_train_step(cfg, lr=TRAIN_LR)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    data = _train_batches(torch, cfg, 2, 256, 6)
+    root = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+
+    def run(fail, sub):
+        sup = TrainSupervisor(step, CheckpointManager(
+            os.path.join(root, sub), keep=2), ckpt_every=3)
+        return sup.run_with_recovery(
+            params, opt.init(params), lambda start: iter(data[start:]),
+            n_steps=6, fail_at_step=fail)
+
+    clean, failed = run(None, "clean"), run(4, "failed")
+    shutil.rmtree(root, ignore_errors=True)
+    pairs = list(zip(tree_leaves(failed["params"]),
+                     tree_leaves(clean["params"])))
+    within = all(bool(((a - b).abs() <= 1e-6 * b.abs()).all())
+                 for a, b in pairs)
+    bitwise = all(torch.equal(a, b) for a, b in pairs)
+    print(f"  restart drill, f32 {TRAIN_ARCH} full width, depth CUT to "
+          f"{DRILL_LAYERS} of 22 (npz checkpoints of params and AdamW "
+          f"state stay quick), B=2 S=256, 6 steps, checkpoints every 3, "
+          f"failure at step 4: restarts {failed['restarts']} (clean "
+          f"{clean['restarts']}), final step {failed['final_step']}, final "
+          f"params within rtol 1e-6 of the clean run's: {within}, bitwise: "
+          f"{bitwise}; losses clean "
+          + " ".join(f"{x:.4f}" for x in clean["losses"]) + ", after the "
+          "restart " + " ".join(f"{x:.4f}" for x in failed["losses"])
+          + f"; {time.perf_counter() - t0:.1f} s")
+    check(failed["restarts"] == 1 and clean["restarts"] == 0
+          and failed["final_step"] == 6, "restart drill: restarts / steps")
+    check(within, "restart drill: final params differ from the clean run's")
+
+
+def bwd_times(torch, fa, flush) -> tuple:
+    """The forward with the lse store and the backward kernel at the
+    training shape (bf16, causal): first held against their plain versions
+    on the same inputs (the output within the reference's bf16 2.5e-2, lse
+    within 1e-4 of a plain logsumexp, dq/dk/dv as ``_within_bwd``, two
+    backward calls bitwise equal).  Then timed, L2 flushed: kernel, plain
+    version and one SDPA backward (K/V expanded to H heads beforehand);
+    the bound from the five products the gradient needs at 989 bf16
+    TFLOP/s against the bytes read and written once; the forward with and
+    without the lse store, beside its plain version and SDPA.  Returns the
+    backward's (ms, plain_ms, library_ms, bound_ms, bound_by, max_abs_err)
+    and the forward's."""
+    B, S, H, KV, D = TRAIN_SHAPE + (32, 4, 64)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q, k, v = flash_inputs(torch, B, S, H, KV, D, D, "bfloat16", 31)
+    do = flash_inputs(torch, B, S, H, KV, D, D, "bfloat16", 32)[0]
+    o, lse = fa._forward(q, k, v, True, D ** -0.5, with_lse=True)
+    f_err = (o.float() - fa.flash_attention_ref(q, k, v).float()).abs() \
+        .max().item()
+    lse_err = (lse - fa.flash_attention_lse_ref(q, k)).abs().max().item()
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    ref = fa.flash_attention_bwd_ref(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    errs = [(a.float() - r.float()).abs().max().item()
+            for a, r in zip(got, ref)]
+    print(f"  B={B} S={S} H={H} KV={KV} D={D} bf16 causal, the training "
+          f"shape: forward with the lse store max|diff| {f_err:.3e} "
+          f"(tolerance 2.5e-2), lse {lse_err:.3e} (tolerance 1e-4); "
+          f"backward dq/dk/dv max|diff| "
+          + " ".join(f"{e:.3e}" for e in errs)
+          + f" (one bf16 ulp + {BWD_BF16_ATOL:g}); two backward calls "
+          f"bitwise equal")
+    check(f_err <= 2.5e-2, f"flash forward at the training shape: {f_err}")
+    check(lse_err <= 1e-4, f"flash lse at the training shape: {lse_err}")
+    for name, a, b, r in zip(("dq", "dk", "dv"), got, again, ref):
+        check(tuple(a.shape) == tuple(r.shape) and a.dtype == r.dtype
+              and bool(torch.isfinite(a).all()),
+              f"{name} at the training shape")
+        check(torch.equal(a, b), f"flash backward {name} not repeatable at "
+              "the training shape")
+        check(_within_bwd(a, r, "bfloat16"), f"flash backward {name} at the "
+              f"training shape: {(a.float() - r.float()).abs().max().item()}")
+    del got, again, ref
+    ms = median_ms(torch, lambda: fa.flash_attention_bwd(q, k, v, o, lse, do),
+                   flush, reps=10)
+    plain_ms = median_ms(torch, lambda: fa.flash_attention_bwd_ref(
+        q, k, v, o, lse, do), flush, reps=3)
+    G = H // KV
+    qs = q.transpose(1, 2).contiguous().requires_grad_(True)
+    ks = k.transpose(1, 2).repeat_interleave(G, dim=1).contiguous() \
+        .requires_grad_(True)
+    vs = v.transpose(1, 2).repeat_interleave(G, dim=1).contiguous() \
+        .requires_grad_(True)
+    out = sdpa(qs, ks, vs, is_causal=True)
+    dos = do.transpose(1, 2).contiguous()
+    lib_ms = median_ms(torch, lambda: torch.autograd.grad(
+        out, (qs, ks, vs), dos, retain_graph=True), flush, reps=10)
+    pairs = S * (S + 1) // 2
+    ops = 5 * 2 * B * H * D * pairs
+    nbytes = (2 * B * S * (H + KV + KV + H + H) * D + 4 * B * H * S
+              + 2 * B * S * (H + 2 * KV) * D)
+    t_ops, t_bytes = ops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    bound = max(t_ops, t_bytes)
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    print(f"  flash_attention_bwd B={B} S={S} H={H} KV={KV} D={D} bf16 "
+          f"causal: kernel {ms:.4f} ms, bound {bound:.5f} ms by {by} (5 "
+          f"products x {ops / 5e9:.3f} GFLOP at 989 bf16 TFLOP/s = "
+          f"{t_ops:.5f} ms; {nbytes} B / 3.35 TB/s = {t_bytes:.5f} ms; the "
+          f"kernel's 7 products on f32 FMAs at 67 TFLOP/s would take "
+          f"{7 * ops / 5 / F32_FLOPS * 1e3:.3f} ms), {bound / ms:.4f} of "
+          f"the bound, plain {plain_ms:.4f} ms, one SDPA backward "
+          f"{lib_ms:.4f} ms")
+    bwd = (ms, plain_ms, lib_ms, bound, by, max(errs))
+    f_ms = median_ms(torch, lambda: fa._forward(q, k, v, True, D ** -0.5,
+                                                with_lse=False), flush)
+    f_lse = median_ms(torch, lambda: fa._forward(q, k, v, True, D ** -0.5,
+                                                 with_lse=True), flush)
+    f_plain = median_ms(torch, lambda: fa.flash_attention_ref(q, k, v),
+                        flush, reps=3)
+    with torch.no_grad():
+        f_lib = median_ms(torch, lambda: sdpa(qs, ks, vs, is_causal=True),
+                          flush)
+    f_ops = 2 * 2 * B * H * D * pairs
+    f_bytes = 2 * B * S * (H + KV + KV + H) * D
+    ft_ops = f_ops / BF16_FLOPS * 1e3
+    ft_bytes = f_bytes / HBM_BYTES_PER_S * 1e3
+    f_bound = max(ft_ops, ft_bytes)
+    f_by = "bytes" if ft_bytes >= ft_ops else "operations"
+    print(f"  flash_attention B={B} S={S} H={H} KV={KV} D={D} bf16 causal: "
+          f"kernel {f_ms:.4f} ms, with the lse store {f_lse:.4f} ms, bound "
+          f"{f_bound:.5f} ms by {f_by}, {f_bound / f_lse:.4f} of the bound "
+          f"(with lse), plain {f_plain:.4f} ms, SDPA {f_lib:.4f} ms")
+    return bwd, (f_lse, f_plain, f_lib, f_bound, f_by, f_err)
+
+
 def main() -> int:
     import torch
 
@@ -1666,7 +2300,7 @@ def main() -> int:
 
     # 2. build
     t_start = t0 = time.perf_counter()
-    libs = ["paged_attention", "flash_attention"]
+    libs = ["paged_attention", "flash_attention", "flash_attention_bwd"]
     default_chunk = pa.CHUNK
     build_all(build, libs, default_chunk)
     print(f"build: {time.perf_counter() - t0:.2f} s ("
@@ -1674,6 +2308,7 @@ def main() -> int:
           "the paged kernels at chunk lengths "
           + ", ".join(str(c) for c in CHUNKS if c != default_chunk) + ")")
     ptxas_report(build.build_log("flash_attention"), fa)
+    bwd_ptxas_report(build.build_log("flash_attention_bwd"), fa)
     paged_ptxas_report(build.build_log("paged_attention"), pa)
 
     # 3. kernels against their plain versions
@@ -1901,9 +2536,37 @@ def main() -> int:
                          else max(flash_err.values())),
             ms=ms, plain_ms=plain_ms,
             bound_ms=bound_ms, bound_by=by, library_ms=lib_ms))
+
+    # 7. training: the backward kernel against its plain version, the f32
+    # step on the card against the CPU's, the main path at full width (its
+    # launches counted from 0 just before it), the restart drill, times
+    t_train = time.perf_counter()
+    print("flash_attention backward vs its plain version:")
+    check_bwd_all(torch, fa)
+    print("training, full width (random weights from seed 0):")
+    train_vs_cpu(torch, fa)
+    train_launches, train_losses = train_main(torch, fa, card)
+    plain_curve(torch, fa, train_losses)
+    restart_drill(torch)
+    print("flash_attention backward and forward at the training shape "
+          "(L2 flushed; median of CUDA events):")
+    bwd, fwd = bwd_times(torch, fa, flush)
+    # max_abs_err: at the training shape, the main path's
+    for name, source, replaces, key, (ms, plain_ms, lib_ms, bound_ms, by,
+                                      err) in (
+            ("flash_attention_bwd", BWD_SOURCE, BWD_REPLACES,
+             "flash_attention_bwd", bwd),
+            ("flash_attention (B 8, S 2048, with lse)", FLASH_SOURCE,
+             FLASH_REPLACES, "flash_attention", fwd)):
+        records.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=train_launches[key], max_abs_err=err, ms=ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+            library_ms=lib_ms))
+    print(f"  training phase: {time.perf_counter() - t_train:.1f} s")
     print(f"total: {time.perf_counter() - t_start:.1f} s")
 
-    # 7. kernel records, then 8. the device
+    # 8. kernel records, then 9. the device
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,17 +1,24 @@
 #!/usr/bin/env python3
-"""The short first call on the GPU after a change to the bf16 flash kernel.
+"""The short first call on the GPU after a change to the flash kernel, its
+log-sum-exp store or its backward.
 
     python3 scripts/flash_first_call.py
 
 From the root of a checkout, on a machine with an NVIDIA Hopper card:
-builds ``src/repro_torch/csrc/flash_attention.cu``, prints each bf16
-instance's registers, spills and shared memory, holds the kernel against
-its plain version at small shapes first (one tile, two tiles, ragged S,
-S = 1, every head-dim pair, three Q/K panels at Dk 192) and then at the
-three prefill shapes, within the reference's bf16 tolerance 2.5e-2, and
-times those shapes back to back with a warm L2 (mean of 50 calls between
-two CUDA events).  Exits non-zero at the first case that fails;
-``chip_smoke.py`` is the full run.
+builds ``src/repro_torch/csrc/flash_attention.cu`` and
+``flash_attention_bwd.cu``, prints each instance's registers, spills and
+shared memory, holds the bf16 forward against its plain version at small
+shapes first (one tile, two tiles, ragged S, S = 1, every head-dim pair,
+three Q/K panels at Dk 192) and then at the three prefill shapes, within
+the reference's bf16 tolerance 2.5e-2.  Then the backward: the forward's
+lse against a plain logsumexp and the backward kernel against
+``flash_attention_bwd_ref`` (``chip_smoke.check_bwd_case``), small shapes
+first (every pair of ``BWD_HEAD_DIMS``, f32 and bf16, causal and full)
+and then tinyllama's training shape (B 8, S 2048, H 32, KV 4, D 64, bf16,
+causal).  Times the prefill shapes and, at the training shape, the
+forward with and without the lse store and the backward, back to back
+with a warm L2 (mean of n calls between two CUDA events).  Exits non-zero
+at the first case that fails; ``chip_smoke.py`` is the full run.
 """
 
 import os
@@ -34,6 +41,29 @@ CASES = [(1, 64, 1, 1, 64, 64, True), (1, 128, 1, 1, 64, 64, True),
          (2, 1024, 16, 16, 192, 128, True)]
 PREFILL = [(4, 1024, 32, 4, 64, 64), (2, 1024, 40, 40, 96, 64),
            (2, 1024, 16, 16, 192, 128)]
+# the backward's (B, S, H, KV, Dk, Dv, causal), smallest first; the
+# training shape last (bf16 only)
+BWD_CASES = [(1, 64, 1, 1, 64, 64, True), (1, 64, 1, 1, 64, 64, False),
+             (1, 128, 2, 1, 64, 64, True), (2, 77, 4, 2, 16, 16, True),
+             (2, 33, 4, 4, 24, 16, False), (3, 1, 4, 2, 64, 64, True),
+             (1, 130, 8, 8, 96, 64, True), (1, 200, 8, 1, 64, 64, False),
+             (1, 1024, 8, 1, 64, 64, True)]
+TRAIN = (8, 2048, 32, 4, 64, 64, True)
+
+
+def mean_ms(torch, fn, n) -> float:
+    """Mean ms of n back-to-back calls between two CUDA events, after
+    warm-up calls."""
+    for _ in range(2):
+        fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / n
 
 
 def main() -> int:
@@ -50,8 +80,10 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
-    build.build(["flash_attention"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build.build(["flash_attention", "flash_attention_bwd"])
     chip_smoke.ptxas_report(build.build_log("flash_attention"), fa)
+    chip_smoke.bwd_ptxas_report(build.build_log("flash_attention_bwd"), fa)
     for i, (B, S, H, KV, Dk, Dv, causal) in enumerate(CASES):
         q, k, v = chip_smoke.flash_inputs(torch, B, S, H, KV, Dk, Dv,
                                           "bfloat16", i)
@@ -67,17 +99,32 @@ def main() -> int:
     for i, (B, S, H, KV, Dk, Dv) in enumerate(PREFILL):
         q, k, v = chip_smoke.flash_inputs(torch, B, S, H, KV, Dk, Dv,
                                           "bfloat16", 100 + i)
-        for _ in range(3):
-            fa.flash_attention(q, k, v)
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(50):
-            fa.flash_attention(q, k, v)
-        b.record()
-        torch.cuda.synchronize()
+        ms = mean_ms(torch, lambda: fa.flash_attention(q, k, v), 50)
         print(f"  B={B} S={S} H={H} KV={KV} Dk={Dk} Dv={Dv} causal: "
-              f"{a.elapsed_time(b) / 50:.4f} ms a call (back to back, L2 "
+              f"{ms:.4f} ms a call (back to back, L2 warm)")
+    for i, case in enumerate(BWD_CASES + [TRAIN]):
+        for dtype in ("float32", "bfloat16"):
+            if case == TRAIN and dtype == "float32":
+                continue
+            # exits non-zero on a failed check
+            err = chip_smoke.check_bwd_case(torch, fa, case, dtype, 50 + i)
+            print(f"  backward {dtype} {case}: dq/dk/dv max|diff| "
+                  f"{err:.3e}")
+    B, S, H, KV, Dk, Dv, causal = TRAIN
+    q, k, v = chip_smoke.flash_inputs(torch, B, S, H, KV, Dk, Dv,
+                                      "bfloat16", 9)
+    do = chip_smoke.flash_inputs(torch, B, S, H, KV, Dk, Dv, "bfloat16",
+                                 10)[0]
+    o, lse = fa._forward(q, k, v, causal, Dk ** -0.5, with_lse=True)
+    for name, fn in (
+            ("forward", lambda: fa._forward(q, k, v, causal, Dk ** -0.5,
+                                            with_lse=False)),
+            ("forward + lse", lambda: fa._forward(q, k, v, causal,
+                                                  Dk ** -0.5, with_lse=True)),
+            ("backward", lambda: fa.flash_attention_bwd(q, k, v, o, lse,
+                                                        do))):
+        print(f"  {name} B={B} S={S} H={H} KV={KV} D={Dk} bf16 causal: "
+              f"{mean_ms(torch, fn, 10):.4f} ms a call (back to back, L2 "
               "warm)")
     return 0
 

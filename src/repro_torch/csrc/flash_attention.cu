@@ -58,9 +58,20 @@
 //   per thread).  The key loop of a query tile stops at the diagonal tile;
 //   causal query tiles run heaviest first.
 //
+// lse: with a non-null lse pointer (training: the saved input of the
+//   backward, csrc/flash_attention_bwd.cu) both bodies also store each row's
+//   f32 log-sum-exp of its scaled scores, m + log(max(l, 1e-30)), into lse
+//   (B, H, S): the f32 body from shared memory after its key loop, the bf16
+//   body from the one thread of a row's four that has lane % 4 == 0, in its
+//   epilogue (its m is in the log2 domain, so it stores m ln 2 + log l).  A
+//   template flag selects the storing instance, so with a null pointer the
+//   kernels are the instances without it, instruction for instruction.  Only
+//   the head dims the backward takes have the storing instance.
+//
 // The C entry point returns cudaGetLastError() as an int (0 = success), or
-// cudaErrorInvalidValue for head dims it has no instance for and for tensor
-// maps the driver refuses.
+// cudaErrorInvalidValue for head dims it has no instance for (with lse, for
+// head dims the backward does not take) and for tensor maps that
+// cuTensorMapEncodeTiled refuses.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -152,11 +163,12 @@ constexpr size_t smem_floats() {
 // Thread (ty, tx) of the 16 x 16 grid owns query rows ty*4 .. ty*4+3; in
 // the score tile keys tx*4 .. tx*4+3, in the output the kCols columns
 // jj*16*kW + tx*kW + j (jj < kCols / kW, j < kW).
-template <int DK, int DV>
+template <int DK, int DV, bool kLse>
 __global__ void __launch_bounds__(kThreads)
     flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ out, int S,
-                 int H, int KV, float scale, int causal) {
+                 const float* __restrict__ v, float* __restrict__ out,
+                 float* __restrict__ lse, int S, int H, int KV, float scale,
+                 int causal) {
   static_assert(DK % 8 == 0, "Dk must be a multiple of 8");
   static_assert(DV == 16 || DV % 64 == 0, "Dv must be 16 or a multiple of 64");
   constexpr int kCols = DV / 16;              // output columns per thread
@@ -303,6 +315,11 @@ __global__ void __launch_bounds__(kThreads)
       for (int j = 0; j < kW; ++j)
         o[g * 16 * kW + j] = acc[i][g * kW + j] / l;
   }
+  if constexpr (kLse) {
+    if (tid < kTile && q0 + tid < S)
+      lse[((size_t)b * H + h) * S + q0 + tid] =
+          m_s[tid] + logf(fmaxf(l_s[tid], 1e-30f));
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -313,6 +330,7 @@ constexpr int kWgThreads = 128;            // one consumer warpgroup
 constexpr int kStages = 2;                 // K/V ring
 constexpr uint32_t kPanelBytes = 64 * 128;  // 64 rows of one 128-byte panel
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -492,13 +510,14 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // stages of QP panels, kStages V stages of VP panels, then the mbarriers.
 // A panel holds 64 rows (queries or keys) of 64 bf16 head-dim columns,
 // 128 bytes a row, 128-byte swizzled by TMA.
-template <int QP, int VP>
+template <int QP, int VP, bool kLse>
 __global__ void __launch_bounds__(kWgThreads)
     flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
-                       __nv_bfloat16* __restrict__ out, int S, int H, int KV,
-                       int Dv, float scale_log2, int causal) {
+                       __nv_bfloat16* __restrict__ out,
+                       float* __restrict__ lse, int S, int H, int KV, int Dv,
+                       float scale_log2, int causal) {
   constexpr int kN = 32 * VP;  // O accumulator registers a thread
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -668,6 +687,17 @@ __global__ void __launch_bounds__(kWgThreads)
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     l[i] = fmaxf(l[i], 1e-30f);
   }
+  if constexpr (kLse) {
+    // m is the row's max in the log2 domain, the same on its 4 threads
+    if ((lane & 3) == 0) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = q0 + r0 + 8 * i;
+        if (row < S)
+          lse[((size_t)b * H + h) * S + row] = m[i] * kLn2 + logf(l[i]);
+      }
+    }
+  }
   __syncthreads();  // every wgmma read of the K stages is done
   uint8_t* const so = gbase + (sk - sq);
   constexpr int kRowBytes = VP * 128;
@@ -737,10 +767,10 @@ constexpr size_t wgmma_smem_bytes(int QP, int VP) {
          8 * (2 * kStages + 1);
 }
 
-template <int QP, int VP>
+template <int QP, int VP, bool kLse>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out,
-                 int B, int S, int H, int KV, int Dk, int Dv, int causal,
-                 float scale, cudaStream_t stream) {
+                 float* lse, int B, int S, int H, int KV, int Dk, int Dv,
+                 int causal, float scale, cudaStream_t stream) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap tq, tk, tv;
@@ -750,31 +780,52 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
     return (int)cudaErrorInvalidValue;
   const size_t smem = wgmma_smem_bytes(QP, VP);
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_wgmma_kernel<QP, VP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_wgmma_kernel<QP, VP, kLse>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(H, B, (S + 63) / 64);
-  flash_wgmma_kernel<QP, VP><<<grid, kWgThreads, smem, stream>>>(
-      tq, tk, tv, (__nv_bfloat16*)out, S, H, KV, Dv, scale * kLog2e, causal);
+  flash_wgmma_kernel<QP, VP, kLse><<<grid, kWgThreads, smem, stream>>>(
+      tq, tk, tv, (__nv_bfloat16*)out, lse, S, H, KV, Dv, scale * kLog2e,
+      causal);
   return (int)cudaGetLastError();
 }
 
-template <int DK, int DV>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int S, int H, int KV, int causal, float scale,
+template <int DK, int DV, bool kLse>
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int B, int S, int H, int KV, int causal, float scale,
            cudaStream_t stream) {
   const size_t smem = sizeof(float) * smem_floats<DK, DV>();
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_kernel<DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        flash_kernel<DK, DV, kLse>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const dim3 grid((S + kTile - 1) / kTile, H, B);
-  flash_kernel<DK, DV><<<grid, kThreads, smem, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)out, S, H,
-      KV, scale, causal);
+  flash_kernel<DK, DV, kLse><<<grid, kThreads, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)out, lse, S,
+      H, KV, scale, causal);
   return (int)cudaGetLastError();
+}
+
+// One head-dim pair: the body of the dtype, with the lse store when lse is
+// non-null and the pair has that instance (kHasLse), else refused.
+template <int DK, int DV, bool kHasLse>
+int dispatch(const void* q, const void* k, const void* v, void* out,
+             float* lse, int B, int S, int H, int KV, int causal, int bf16,
+             float scale, cudaStream_t st) {
+  constexpr int QP = (DK + 63) / 64, VP = (DV + 63) / 64;
+  if (lse == nullptr)
+    return bf16 ? launch_wgmma<QP, VP, false>(q, k, v, out, lse, B, S, H, KV,
+                                              DK, DV, causal, scale, st)
+                : launch<DK, DV, false>(q, k, v, out, lse, B, S, H, KV,
+                                        causal, scale, st);
+  if constexpr (kHasLse)
+    return bf16 ? launch_wgmma<QP, VP, true>(q, k, v, out, lse, B, S, H, KV,
+                                             DK, DV, causal, scale, st)
+                : launch<DK, DV, true>(q, k, v, out, lse, B, S, H, KV,
+                                       causal, scale, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -783,30 +834,30 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 // pointer must be 16-byte aligned (the wrapper checks).  The head dims are
 // the served models' (tinyllama 64/64, minicpm3's MLA prefill 96/64,
 // deepseek-v2-lite's 192/128), 128-wide heads, and the reduced test
-// configs' (16/16 GQA, 24/16 MLA).
+// configs' (16/16 GQA, 24/16 MLA).  lse (B, H, S) f32 or null; non-null
+// only at the backward's head dims (16/16, 24/16, 64/64, 96/64).
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out, int B, int S,
-                                      int H, int KV, int Dk, int Dv,
-                                      int causal, int bf16, float scale,
-                                      void* stream) {
+                                      const void* v, void* out, float* lse,
+                                      int B, int S, int H, int KV, int Dk,
+                                      int Dv, int causal, int bf16,
+                                      float scale, void* stream) {
   if (B <= 0 || S <= 0 || KV <= 0 || H % KV || H > 65535 || B > 65535 ||
       (S + 63) / 64 > 65535)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-#define FLASH_CASE(DK, DV)                                                  \
-  if (Dk == DK && Dv == DV)                                                 \
-    return bf16 ? launch_wgmma<(DK + 63) / 64, (DV + 63) / 64>(             \
-                      q, k, v, out, B, S, H, KV, Dk, Dv, causal, scale, st) \
-                : launch<DK, DV>(q, k, v, out, B, S, H, KV, causal, scale, st);
-  FLASH_CASE(64, 64)
-  FLASH_CASE(96, 64)
-  FLASH_CASE(128, 128)
-  FLASH_CASE(64, 128)
-  FLASH_CASE(96, 128)
-  FLASH_CASE(128, 64)
-  FLASH_CASE(16, 16)
-  FLASH_CASE(24, 16)
-  FLASH_CASE(192, 128)
+#define FLASH_CASE(DK, DV, LSE)                                            \
+  if (Dk == DK && Dv == DV)                                                \
+    return dispatch<DK, DV, LSE>(q, k, v, out, lse, B, S, H, KV, causal,   \
+                                 bf16, scale, st);
+  FLASH_CASE(64, 64, true)
+  FLASH_CASE(96, 64, true)
+  FLASH_CASE(128, 128, false)
+  FLASH_CASE(64, 128, false)
+  FLASH_CASE(96, 128, false)
+  FLASH_CASE(128, 64, false)
+  FLASH_CASE(16, 16, true)
+  FLASH_CASE(24, 16, true)
+  FLASH_CASE(192, 128, false)
 #undef FLASH_CASE
   return (int)cudaErrorInvalidValue;
 }

@@ -33,6 +33,22 @@ def tree_leaves(tree) -> list:
     return out
 
 
+class Leaves(tuple):
+    """Several results at one leaf of a tree (told apart from the tree's
+    own tuples), for ``tree_unzip``."""
+
+
+def tree_unzip(tree, n: int) -> tuple:
+    """n trees from one whose leaves are ``Leaves`` of n items."""
+    def pick(t, i):
+        if isinstance(t, Leaves):
+            return t[i]
+        if isinstance(t, dict):
+            return {k: pick(v, i) for k, v in t.items()}
+        return type(t)(pick(v, i) for v in t)
+    return tuple(pick(tree, i) for i in range(n))
+
+
 def _tensor(a, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
     a = np.array(a)                       # a private, writable copy
     if a.dtype.name == "bfloat16":

@@ -1,6 +1,7 @@
-"""Shared building blocks of the paged model: RMS norm, rotary positions,
-SwiGLU MLP.  Norm variance and rope angles run in float32 regardless of
-the activation dtype, as in the reference (``repro.models.layers``)."""
+"""Shared building blocks of the model: RMS norm, rotary positions, SwiGLU
+MLP, LM loss.  Norm variance, rope angles and the loss run in float32
+regardless of the activation dtype, as in the reference
+(``repro.models.layers``)."""
 
 from __future__ import annotations
 
@@ -58,3 +59,21 @@ def mlp(x, p):
     """SwiGLU: ``(silu(x @ w_gate) * (x @ w_up)) @ w_down``."""
     h = silu(x @ p["w_gate"]) * (x @ p["w_up"])
     return h @ p["w_down"]
+
+
+def lm_loss(h, w_head, labels, mask, vocab_size: int):
+    """h: (B, S, D), w_head: (D, Vp), labels: (B, S) int, mask: (B, S).
+
+    Mean NLL over masked-in tokens.  The logits are f32: exact products of
+    the stored values with f32 sums, as the reference's
+    ``preferred_element_type=float32``.  Padded vocab columns are excluded
+    by a -1e9 bias."""
+    logits = h.float() @ w_head.float()
+    vp = w_head.shape[-1]
+    if vp > vocab_size:
+        col = torch.arange(vp, device=logits.device)
+        logits = logits + torch.where(col < vocab_size, 0.0, -1e9)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.take_along_dim(logits, labels.long()[..., None], dim=-1)[..., 0]
+    nll = (lse - ll) * mask
+    return nll.sum() / torch.clamp(mask.sum(), min=1.0)

@@ -1,8 +1,9 @@
 """The reference's model API (``repro.models.model``) on PyTorch tensors,
 for "attn" (GQA) and "mla" stacks with "mlp", "moe" or "none" FFNs: the
-full-sequence forward (``logits``, ``prefill``, ``decode_step`` over
-contiguous caches) and the paged-serving entry points (``prefill_paged``,
-``decode_paged``, ``verify_paged``; GQA stacks with any FFN).
+training loss (``loss``), the full-sequence forward (``logits``,
+``prefill``, ``decode_step`` over contiguous caches) and the paged-serving
+entry points (``prefill_paged``, ``decode_paged``, ``verify_paged``; GQA
+stacks with any FFN).
 
 Parameters are a plain dict of tensors in the reference's layout:
 ``embed`` (V, d); ``prefix`` {"l{i}": layer}; ``units`` {"l{i}": layer},
@@ -30,7 +31,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import VerifyWindow
-from repro_torch.models.layers import rms_norm
+from repro_torch.models.layers import lm_loss, rms_norm
 from repro_torch.models.transformer import stack_apply, stack_apply_paged
 
 
@@ -144,6 +145,27 @@ class Model:
         x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
         logits = x.float() @ self._head_f32(params["lm_head"])
         return logits[..., :self.cfg.vocab_size]
+
+    def _loss_mask(self, batch):
+        """Ones over ``batch["labels"]``: every position is a target.  The
+        reference's vision frontend masks its patch positions; the port
+        has no frontends (``_embed`` refuses them too)."""
+        if self.cfg.frontend == "vision_patches":
+            raise ValueError("the port has no vision frontend: no loss mask "
+                             "for patch positions")
+        return torch.ones_like(batch["labels"], dtype=torch.float32)
+
+    def loss(self, params, batch):
+        """Mean next-token NLL of ``batch["tokens"]`` (B, S) against
+        ``batch["labels"]`` (B, S), a 0-d f32 tensor; differentiable in the
+        parameters.  The head is ``params["lm_head"]`` itself (never the
+        cached f32 copy of ``_head_f32``, made outside autograd), through
+        ``lm_loss``."""
+        x = self._embed(params, batch["tokens"])
+        x, _ = stack_apply(x, params, self.cfg, "train")
+        x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
+        return lm_loss(x, params["lm_head"], batch["labels"],
+                       self._loss_mask(batch), self.cfg.vocab_size)
 
     def logits(self, params, batch):
         """Full-sequence logits (B, S, V) f32 of ``batch["tokens"]`` (B, S);

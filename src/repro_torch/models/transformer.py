@@ -1,7 +1,11 @@
 """Layer assembly: attention + SwiGLU or MoE blocks, the prefix layers,
 then ``num_units`` repetitions of the unit pattern.  Unit parameters, caches
 and page pools carry a leading ``num_units`` dim, as in the reference; a
-Python loop over units takes the place of ``lax.scan``.
+Python loop over units takes the place of ``lax.scan``.  In mode "train"
+with ``cfg.remat``, when a gradient is being taken, each unit runs under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of the scan
+body): its activations are recomputed in the backward pass, so the flash
+forward runs once more per layer there.
 
 Full-sequence forward (``stack_apply``): "attn" (GQA) and "mla" mixers,
 "mlp", "moe" and "none" FFNs.  Paged serving (``stack_apply_paged``):
@@ -17,6 +21,7 @@ position; only attention sees the whole window."""
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.attention import (gqa_apply, gqa_decode_paged,
                                          gqa_prefill_paged, gqa_verify_paged,
@@ -67,17 +72,42 @@ def _unit_slice(tree, u):
             for key, layer in tree.items()}
 
 
+def _unit_params(units, n: int):
+    """The per-unit parameter dicts of mode "train": each stacked leaf
+    unbound once, so its gradient is one stack of the units' gradients
+    (slicing it per unit would give each unit's backward a zero-filled
+    gradient of the whole stack)."""
+    parts = {key: {name: leaf.unbind(0) for name, leaf in layer.items()}
+             for key, layer in units.items()}
+    return [{key: {name: t[u] for name, t in layer.items()}
+             for key, layer in parts.items()} for u in range(n)]
+
+
 def stack_apply(x, params, cfg, mode, caches=None, index=None):
-    """The full-sequence stack.  mode "train": returns (x, None).  mode
-    "prefill": returns (x, caches), unit caches stacked on a leading
-    num_units dim.  mode "decode": ``caches`` (as ``Model.init_caches``
-    makes them) are written in place at ``index`` and returned."""
+    """The full-sequence stack.  mode "train": returns (x, None); with
+    ``cfg.remat``, grad enabled and x or a unit parameter requiring grad,
+    each unit is checkpointed.  mode "prefill": returns (x, caches), unit
+    caches stacked on a leading num_units dim.  mode "decode": ``caches``
+    (as ``Model.init_caches`` makes them) are written in place at
+    ``index`` and returned."""
     new_prefix = []
     for i, (mixer, ffn) in enumerate(cfg.prefix_pattern):
         cache_i = caches["prefix"][i] if caches is not None else None
         x, nc = layer_apply(x, params["prefix"][f"l{i}"], mixer, ffn, cfg,
                             mode, cache=cache_i, index=index)
         new_prefix.append(nc)
+    if mode == "train":
+        remat = cfg.remat and torch.is_grad_enabled() and (
+            x.requires_grad or any(t.requires_grad
+                                   for layer in params["units"].values()
+                                   for t in layer.values()))
+        for up in _unit_params(params["units"], cfg.num_units):
+            if remat:
+                x, _ = checkpoint(unit_apply, x, up, cfg, mode,
+                                  use_reentrant=False)
+            else:
+                x, _ = unit_apply(x, up, cfg, mode)
+        return x, None
     per_unit = []
     for u in range(cfg.num_units):
         ucache = (_unit_slice(caches["units"], u) if mode == "decode"
@@ -85,8 +115,6 @@ def stack_apply(x, params, cfg, mode, caches=None, index=None):
         x, nc = unit_apply(x, _unit_slice(params["units"], u), cfg, mode,
                            ucache, index)
         per_unit.append(nc)
-    if mode == "train":
-        return x, None
     if mode == "decode":
         # the unit caches were written in place through their slices
         return x, {"prefix": tuple(new_prefix), "units": caches["units"]}

@@ -3,9 +3,10 @@ version (the verify kernel also bitwise against chained decode-kernel
 launches, the attend-only kernel bitwise the fused one, a lane alone
 bitwise among 64, contexts across the paged kernels' chunk edges), the
 reduced model's token streams equal across attention modes, decode
-horizons and speculation, the flash kernel's causal mask, the reduced
-full-sequence forward on the card equal to the CPU's (MoE stacks among
-them), a 2-replica reduced fleet (disaggregated and routed) with merged
+horizons and speculation, the flash kernel's causal mask, the flash
+backward kernel against its plain version (bitwise repeatable), the reduced
+full-sequence forward and the reduced ``Model.loss`` gradients on the card
+equal to the CPU's (MoE stacks among them), a 2-replica reduced fleet (disaggregated and routed) with merged
 streams equal to one replica's, and the migration round trip bitwise.
 Marked ``cuda``; skips without a GPU.  Run on the GPU machine with
 
@@ -453,6 +454,109 @@ def test_reduced_fullseq_forward_on_card_matches_cpu(cuda, arch):
         outs.append(logits.cpu())
     assert (outs[0] - outs[1]).abs().max().item() <= 1e-4
     assert (outs[1] - ref[:, S - 1]).abs().max().item() <= 2e-2
+
+
+# f32: 2e-5 of the tensor's largest value (at least 1), sums in another
+# order (f32 FMAs vs the plain version's cuBLAS GEMMs); bf16: one bf16 ulp
+# (2^-7 of the value bounds it) plus 1e-4
+BWD_F32_RTOL, BWD_BF16_ATOL = 2e-5, 1e-4
+
+
+def _bwd_within(got, ref, dtype):
+    diff = (got.float() - ref.float()).abs()
+    if dtype == torch.float32:
+        return diff.max().item() <= BWD_F32_RTOL * max(
+            1.0, ref.abs().max().item())
+    return bool((diff <= ref.float().abs() * 2 ** -7 + BWD_BF16_ATOL).all())
+
+
+@pytest.mark.parametrize("dtype,causal,B,S,H,KV,Dk,Dv", [
+    (torch.float32, True, 2, 77, 4, 2, 16, 16),      # reduced GQA, ragged
+    (torch.float32, False, 2, 77, 4, 2, 16, 16),
+    (torch.float32, True, 2, 33, 4, 4, 24, 16),      # reduced MLA
+    (torch.float32, True, 1, 200, 8, 1, 64, 64),     # G = 8, ragged
+    (torch.float32, False, 1, 130, 8, 8, 96, 64),    # MLA head dims
+    (torch.float32, True, 3, 1, 4, 2, 64, 64),       # S = 1
+    (torch.bfloat16, True, 2, 256, 8, 1, 64, 64),
+    (torch.bfloat16, False, 1, 65, 8, 8, 96, 64),
+    (torch.bfloat16, True, 1, 63, 4, 2, 24, 16),
+])
+def test_flash_bwd_kernel_matches_plain_version(cuda, dtype, causal, B, S,
+                                                H, KV, Dk, Dv):
+    """The backward kernel against ``flash_attention_bwd_ref`` on the same
+    inputs (the kernel forward's output and lse), one launch a call, and
+    two calls bitwise equal (no atomics)."""
+    from repro_torch.kernels import flash_attention as fa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda).manual_seed(S + Dk + 7)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=cuda).to(dtype)
+
+    q, k, v = rnd(B, S, H, Dk), rnd(B, S, KV, Dk), rnd(B, S, KV, Dv)
+    do = rnd(B, S, H, Dv)
+    o, lse = fa._forward(q, k, v, causal, Dk ** -0.5, with_lse=True)
+    lse_ref = fa.flash_attention_lse_ref(q, k, causal=causal)
+    assert (lse - lse_ref).abs().max().item() <= 1e-4
+    before = fa.launches["flash_attention_bwd"]
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    ref = fa.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.launches["flash_attention_bwd"] == before + 2
+    for a, b, r in zip(got, again, ref):
+        assert a.dtype == dtype and a.shape == r.shape
+        assert torch.equal(a, b)
+        assert _bwd_within(a, r, dtype)
+
+
+def test_flash_function_grads_match_autograd_on_card(cuda):
+    """f32: ``FlashAttentionFn``'s gradients (forward and backward
+    kernels) against torch autograd through ``flash_attention_ref``."""
+    from repro_torch.kernels import flash_attention as fa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (torch.randn(s, generator=g, device=cuda)
+               for s in ((2, 150, 8, 64), (2, 150, 2, 64), (2, 150, 2, 64)))
+    do = torch.randn(2, 150, 8, 64, generator=g, device=cuda)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ref_leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    got = torch.autograd.grad(fa.flash_attention(*leaves), leaves, do)
+    ref = torch.autograd.grad(fa.flash_attention_ref(*ref_leaves),
+                              ref_leaves, do)
+    for a, b in zip(got, ref):
+        assert _bwd_within(a, b, torch.float32)
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "minicpm3-4b",
+                                  "kimi-k2-1t-a32b", "deepseek-v2-lite-16b"])
+def test_reduced_loss_grads_on_card_match_cpu(cuda, arch):
+    """Reduced f32 model: ``Model.loss`` and every gradient on the card
+    (flash forward and backward kernels, one backward launch per layer)
+    within 1e-5 of the CPU's (the plain versions), every gradient leaf
+    non-zero."""
+    from repro_torch.configs.archs import reduced_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models.convert import tree_leaves, tree_map
+    from repro_torch.models.model import build_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced_config(arch)
+    m = build_model(cfg)
+    cpu = m.init(torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    batch = {k: torch.randint(0, cfg.vocab_size, (2, 70), generator=gen,
+                              dtype=torch.int32) for k in ("tokens", "labels")}
+    before = fa.launches["flash_attention_bwd"]
+    loss, grads = value_and_grad(
+        m.loss, tree_map(lambda t: t.to(cuda), cpu),
+        {k: t.to(cuda) for k, t in batch.items()})
+    assert fa.launches["flash_attention_bwd"] == before + cfg.num_layers
+    ref_loss, ref = value_and_grad(m.loss, cpu, batch)
+    assert abs(loss.item() - ref_loss.item()) <= 1e-5
+    for a, b in zip(tree_leaves(grads), tree_leaves(ref)):
+        assert (a.cpu() - b).abs().max().item() <= 1e-5
+        assert bool(a.abs().sum() > 0)
 
 
 _FLEET_SPEC = dict(rate=1.5, duration=6.0, seed=0, mix=(2, 1, 1),

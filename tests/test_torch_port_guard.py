@@ -34,6 +34,7 @@ VERBATIM = [
     "configs/musicgen_medium.py", "configs/pixtral_12b.py", "configs/archs.py",
     "cluster/__init__.py", "cluster/engine.py", "cluster/router.py",
     "cluster/autoscaler.py", "launch/dashboard.py",
+    "training/fault_tolerance.py",
 ]
 _IMPORT = re.compile(r"^(\s*)(from|import) repro(?=[.\s])", re.M)
 
@@ -66,7 +67,16 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
             "repro_torch.examples.quickstart",
             "repro_torch.examples.serve_cluster",
             "repro_torch.examples.serve_mixed_slo",
-            "repro_torch.examples.agentic_pipeline"} <= set(mods)
+            "repro_torch.examples.agentic_pipeline",
+            "repro_torch.examples.train_lm",
+            "repro_torch.training",
+            "repro_torch.training.optimizer",
+            "repro_torch.training.compression",
+            "repro_torch.training.checkpoint",
+            "repro_torch.training.fault_tolerance",
+            "repro_torch.data",
+            "repro_torch.data.pipeline",
+            "repro_torch.launch.train"} <= set(mods)
     code = textwrap.dedent(f"""
         import importlib, importlib.abc, sys
         class Refuse(importlib.abc.MetaPathFinder):
