@@ -2,8 +2,9 @@
 
 Each source becomes a shared library with a plain C interface, compiled by
 ``nvcc`` for ``sm_90a`` (Hopper) at first use into ``build/repro_torch/``
-at the repository root.  A library's file name carries a hash of its source
-and flags, so an edited source is rebuilt and an unchanged one is reused.
+at the repository root.  A library's file name carries a hash of its source,
+the shared headers (``csrc/*.cuh``) and the flags, so an edited source or
+header is rebuilt and an unchanged one is reused.
 Nothing is built or loaded at import time: callers ask for a library when
 they are about to launch one of its kernels.  ``ptxas`` reports each
 kernel's registers, shared memory and spills (``-Xptxas -v``); the report
@@ -48,7 +49,8 @@ def _flags(defines: Sequence[str] = ()):
 
 def library_path(name: str, defines: Sequence[str] = ()) -> Path:
     """Where the library built from ``csrc/<name>.cu`` lives."""
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(_flags(defines)).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 

@@ -21,8 +21,12 @@ Gradients: when grad is enabled and an input requires it,
 keeps each row's f32 log-sum-exp and whose backward is
 ``flash_attention_bwd`` (kernel: ``csrc/flash_attention_bwd.cu``; plain
 version ``flash_attention_bwd_ref``), at the head-dim pairs of
-``BWD_HEAD_DIMS``.  Otherwise it launches the forward alone, as it always
-did, so inference paths are unchanged bit for bit.
+``BWD_HEAD_DIMS``.  On the card the bf16 backward runs its products on
+the tensor cores with P and dS rounded to bf16 as operands (the plain
+version's ``bf16_operands``), the f32 one on f32 FMAs; ``bwd_error`` is
+its error as a fraction of the tolerance a test holds it to.  Otherwise
+it launches the forward alone, as it always did, so inference paths are
+unchanged bit for bit.
 """
 
 from __future__ import annotations
@@ -44,8 +48,28 @@ HEAD_DIMS = frozenset({(64, 64), (96, 64), (128, 128), (64, 128), (96, 128),
                        (128, 64), (16, 16), (24, 16), (192, 128)})
 
 # (Dk, Dv) pairs of the backward: the reduced test configs' (16/16 GQA,
-# 24/16 MLA), tinyllama's 64/64 and minicpm3's MLA 96/64
-BWD_HEAD_DIMS = frozenset({(16, 16), (24, 16), (64, 64), (96, 64)})
+# 24/16 MLA), tinyllama's 64/64, minicpm3's MLA 96/64, 128-wide heads (yi,
+# minitron, kimi, jamba, pixtral) and deepseek-v2-lite's MLA 192/128
+BWD_HEAD_DIMS = frozenset({(16, 16), (24, 16), (64, 64), (96, 64),
+                           (128, 128), (192, 128)})
+
+# the backward kernel's tolerances against the plain backward in f32
+# (``bwd_error``).  f32: 2e-5 of the tensor's largest value (at least 1),
+# sums of up to 2048 x 8 products in another order (f32 FMAs against
+# cuBLAS GEMMs).  bf16, per element, |got - ref| <= 2^-8 |ref| + 2^-6 rss
+# + BWD_BF16_ATOL, derived from what the kernel rounds: its output is the
+# f32 sum x rounded once to bf16 (at most 2^-8 |x|, an 8-bit significand);
+# x - ref is the sum of the terms t_j of the gradient's sum (P dout for dV,
+# dS Q for dK, dS K for dQ) times the relative error d_j of rounding their
+# P or dS operand to bf16, |d_j| <= 2^-8, mean zero, independent from term
+# to term, so its standard deviation is at most 2^-8 rss / sqrt(3) with rss
+# = sqrt(sum t_j^2) (``flash_attention_bwd_rss``); 2^-6 rss is 6.9 of them.
+# BWD_BF16_ATOL covers the f32 noise (sum orders, exp2 against exp).  The
+# worst case sum |t_j| >= |ref| would admit a gradient scaled by 1.01
+# everywhere; this bound rejects it where |ref| > 2.6 rss (a few elements
+# in a thousand of random-sign sums)
+BWD_F32_RTOL = 2e-5
+BWD_BF16_ATOL = 1e-4
 
 # kernel launches (plain versions are not counted); a forward that keeps
 # the log-sum-exp for the backward counts as a flash_attention launch
@@ -78,18 +102,19 @@ def _bwd_kernels() -> ctypes.CDLL:
         lib.flash_attention_bwd_launch.argtypes = (
             [p] * 10 + [i] * 8 + [ctypes.c_float, p])
         lib.flash_attention_bwd_launch.restype = i
-        lib.flash_attention_bwd_smem_bytes.argtypes = [i, i, i]
+        lib.flash_attention_bwd_smem_bytes.argtypes = [i, i, i, i]
         lib.flash_attention_bwd_smem_bytes.restype = i
         _bwd_lib = lib
     return _bwd_lib
 
 
-def bwd_smem_bytes(Dk: int, Dv: int) -> tuple:
-    """The backward's dynamic shared memory per block at (Dk, Dv): (dK/dV
-    kernel, dQ kernel); loads (and at first use builds) its library."""
+def bwd_smem_bytes(Dk: int, Dv: int, bf16: bool) -> tuple:
+    """The backward's dynamic shared memory per block at (Dk, Dv), of its
+    bf16 (wgmma) or f32 (FMA) body: (dK/dV kernel, dQ kernel); loads (and
+    at first use builds) its library."""
     lib = _bwd_kernels()
-    return (lib.flash_attention_bwd_smem_bytes(Dk, Dv, 0),
-            lib.flash_attention_bwd_smem_bytes(Dk, Dv, 1))
+    return (lib.flash_attention_bwd_smem_bytes(Dk, Dv, 0, int(bf16)),
+            lib.flash_attention_bwd_smem_bytes(Dk, Dv, 1, int(bf16)))
 
 
 def smem_bytes(Dk: int, Dv: int) -> int:
@@ -130,29 +155,71 @@ def flash_attention_lse_ref(q, k, *, causal: bool = True, scale=None):
     return torch.logsumexp(s, dim=-1).reshape(B, H, S)
 
 
-def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
-                            scale=None):
-    """Plain backward: P recomputed from ``lse`` (B, H, S) as exp(S * scale
-    - lse) (masked scores -1e30, so P = 0), dV = P^T dO, dP = dO V^T,
-    delta = rowsum(dO o), dS = P (dP - delta) scale, dQ = dS K, dK = dS^T
-    Q, all in f32; dK and dV summed over the G query heads of each
-    kv-head.  Returns (dq, dk, dv) in the inputs' dtype."""
+def _bwd_operands(q, k, v, o, lse, do, causal: bool, scale):
+    """The plain backward's f32 operands: q (B, S, KV, G, Dk), k, dO (B,
+    S, KV, G, Dv), and P and dS (B, KV, G, S, S)."""
     B, S, H, Dk = q.shape
     KV, Dv = k.shape[2], v.shape[-1]
     G = H // KV
     scale = scale or Dk ** -0.5
     qf = q.float().reshape(B, S, KV, G, Dk)
-    kf, vf = k.float(), v.float()
     dof = do.float().reshape(B, S, KV, G, Dv)
     s = _scores(q, k, causal, scale)
     p = torch.exp(s - lse.float().reshape(B, KV, G, S, 1))
-    dv = torch.einsum("bkgqs,bqkgd->bskd", p, dof)
-    dp = torch.einsum("bqkgd,bskd->bkgqs", dof, vf)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dof, v.float())
     delta = (dof * o.float().reshape(B, S, KV, G, Dv)).sum(-1)
     ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None]) * scale
+    return qf, k.float(), dof, p, ds
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
+                            scale=None, bf16_operands: bool = False):
+    """Plain backward: P recomputed from ``lse`` (B, H, S) as exp(S * scale
+    - lse) (masked scores -1e30, so P = 0), dV = P^T dO, dP = dO V^T,
+    delta = rowsum(dO o), dS = P (dP - delta) scale, dQ = dS K, dK = dS^T
+    Q, all in f32; dK and dV summed over the G query heads of each
+    kv-head.  ``bf16_operands`` rounds P and dS to bf16 before the three
+    gradient products, as the bf16 kernel does.  Returns (dq, dk, dv) in
+    the inputs' dtype."""
+    B, S, H, Dk = q.shape
+    qf, kf, dof, p, ds = _bwd_operands(q, k, v, o, lse, do, causal, scale)
+    if bf16_operands:
+        p, ds = (t.to(torch.bfloat16).float() for t in (p, ds))
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, dof)
     dq = torch.einsum("bkgqs,bskd->bqkgd", ds, kf).reshape(B, S, H, Dk)
     dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qf)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_rss(q, k, v, o, lse, do, *, causal: bool = True,
+                            scale=None):
+    """The root-sum-square of the terms of each gradient's sums, (dq, dk,
+    dv)-shaped, f32: sqrt(sum dS^2 K^2), sqrt(sum dS^2 Q^2), sqrt(sum P^2
+    dO^2) from the plain backward's operands; the scale of the bf16
+    kernel's operand rounding in ``bwd_error``."""
+    B, S, H, Dk = q.shape
+    qf, kf, dof, p, ds = _bwd_operands(q, k, v, o, lse, do, causal, scale)
+    p, ds = p.square(), ds.square()
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, dof.square())
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, kf.square())
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qf.square())
+    return dq.reshape(B, S, H, Dk).sqrt(), dk.sqrt(), dv.sqrt()
+
+
+def bwd_error(got, ref, rss=None) -> float:
+    """The error of a gradient of the backward kernel against the plain
+    backward's in f32, ``ref`` (``flash_attention_bwd_ref`` on f32 inputs),
+    as a fraction of its tolerance: at most 1 passes.  f32 (``rss`` None):
+    max |got - ref| over BWD_F32_RTOL * max(1, max |ref|).  bf16: the
+    largest of |got - ref| / (2^-8 |ref| + 2^-6 rss + BWD_BF16_ATOL) over
+    the elements, ``rss`` from ``flash_attention_bwd_rss`` (the derivation
+    is beside the constants)."""
+    diff = (got.float() - ref.float()).abs()
+    if rss is None:
+        return diff.max().item() / (BWD_F32_RTOL * max(
+            1.0, ref.abs().max().item()))
+    return (diff / (2 ** -8 * ref.float().abs() + 2 ** -6 * rss
+                    + BWD_BF16_ATOL)).max().item()
 
 
 def _check(q, k, v) -> None:
@@ -191,12 +258,12 @@ def _check(q, k, v) -> None:
             _check_tma(q, k, v)
 
 
-def _check_tma(q, k, v) -> None:
-    """What the bf16 kernel's tensor maps (dims (D, heads, S, B), boxes
-    of {64, 1, 64, 1}) need: every byte stride a multiple of 16 and below
-    2^40, every dim below 2^32, the head dims within three 64-wide
+def _check_tma(*ts, names=("q", "k", "v")) -> None:
+    """What the bf16 kernels' tensor maps (dims (D, heads, S, B), boxes
+    of {64, 1, 64 or 32, 1}) need: every byte stride a multiple of 16 and
+    below 2^40, every dim below 2^32, the head dims within three 64-wide
     panels."""
-    for name, t in dict(q=q, k=k, v=v).items():
+    for name, t in zip(names, ts):
         B, S, heads, D = t.shape
         strides = (2 * D, 2 * heads * D, 2 * S * heads * D)
         if any(s % 16 or s >= 2 ** 40 for s in strides):
@@ -280,6 +347,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                                        scale=scale)
     if any(t.data_ptr() % 16 for t in (o, do, lse)):
         raise ValueError("o, do and lse must be 16-byte aligned")
+    if q.dtype == torch.bfloat16:
+        _check_tma(do, names=("do",))
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0:
         return dq, dk, dv

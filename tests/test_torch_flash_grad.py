@@ -6,8 +6,11 @@ against ``jax.vjp`` of the reference's attention (``kernels/ref.py``
 the causal mask, ``online_attention``, whose checkpointed chunk body is
 what the reference trains through) at ragged S, every ``BWD_HEAD_DIMS``
 pair, G 1 and 2, causal and full; ``FlashAttentionFn`` against torch
-autograd through the plain forward; and the head-dim pairs without a
-backward refused.
+autograd through the plain forward; the head-dim pairs without a
+backward refused; and ``bwd_error``, the bound the bf16 kernel is held
+to, against the plain backward with P and dS rounded to bf16 as the
+kernel rounds them (accepted) and against a dK without one query head's
+terms or a dQ scaled by 1.01 (rejected).
 
 Tolerances: f32 gradients within 2e-5 of the reference's (sums over up to
 77 keys and 2 query heads taken in other orders; the errors measure 3.8e-6
@@ -96,7 +99,8 @@ def test_plain_backward_matches_jax_vjp(Dk, Dv, G, causal):
             assert _err(t, j) < TOL["float32"]
 
 
-@pytest.mark.parametrize("Dk,Dv", [(64, 64), (96, 64)])
+@pytest.mark.parametrize("Dk,Dv", [(64, 64), (96, 64), (128, 128),
+                                   (192, 128)])
 def test_plain_backward_bf16_matches_jax_vjp(Dk, Dv):
     (jq, jk, jv, jdo), (q, k, v, do) = _inputs(Dk, S, 4, 2, Dk, Dv,
                                                "bfloat16")
@@ -153,7 +157,7 @@ def test_lse_is_the_rows_logsumexp():
     assert (lse - torch.logsumexp(s, -1)).abs().max().item() < 1e-5
 
 
-@pytest.mark.parametrize("Dk,Dv", [(128, 128), (192, 128), (64, 128)])
+@pytest.mark.parametrize("Dk,Dv", [(96, 128), (128, 64), (64, 128)])
 def test_pairs_without_a_backward_raise(Dk, Dv):
     q = torch.zeros(1, 5, 4, Dk, requires_grad=True)
     k = torch.zeros(1, 5, 2, Dk)
@@ -168,3 +172,54 @@ def test_pairs_without_a_backward_raise(Dk, Dv):
     with torch.no_grad():
         assert fa.flash_attention(q, k, v).shape == (1, 5, 4, Dv)
     assert fa.launches == before
+
+
+def _bound_case(Dk, Dv, causal, H=4, KV=2, S=96):
+    """bf16 inputs; the forward's output and lse from the plain versions;
+    (bf16 inputs, f32 copies, lse) for the backward."""
+    _, ts = _inputs(Dk + Dv + causal, S, H, KV, Dk, Dv, "bfloat16")
+    q, k, v, do = ts
+    o = fa.flash_attention_ref(q, k, v, causal=causal)
+    lse = fa.flash_attention_lse_ref(q, k, causal=causal)
+    return (q, k, v, o, do), [t.float() for t in (q, k, v, o, do)], lse
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("Dk,Dv", [(64, 64), (128, 128), (192, 128)])
+def test_bf16_bound_accepts_rounded_operands(Dk, Dv, causal):
+    """The plain backward with P and dS rounded to bf16 before the three
+    gradient products and its outputs rounded to bf16 (what the bf16
+    kernel computes) is within ``bwd_error``'s bound of the plain backward in
+    f32."""
+    (q, k, v, o, do), (qf, kf, vf, of, dof), lse = _bound_case(Dk, Dv,
+                                                               causal)
+    got = fa.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                     bf16_operands=True)
+    ref = fa.flash_attention_bwd_ref(qf, kf, vf, of, lse, dof, causal=causal)
+    rss = fa.flash_attention_bwd_rss(qf, kf, vf, of, lse, dof, causal=causal)
+    for g, r, e in zip(got, ref, rss):
+        assert g.dtype == torch.bfloat16 and r.dtype == torch.float32
+        assert fa.bwd_error(g, r, e) <= 1
+        # rounding P and dS moved the gradients: the bound is not idle
+        assert not torch.equal(g, r.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("Dk,Dv", [(64, 64), (192, 128)])
+def test_bf16_bound_rejects_a_lost_head_and_a_scaled_dq(Dk, Dv):
+    """A dK that lost one query head's terms (G = 2), and a dQ scaled by
+    1.01, are outside ``bwd_error``'s bound."""
+    (q, k, v, o, do), (qf, kf, vf, of, dof), lse = _bound_case(Dk, Dv, True)
+    dq, dk, _ = fa.flash_attention_bwd_ref(q, k, v, o, lse, do,
+                                           bf16_operands=True)
+    ref = fa.flash_attention_bwd_ref(qf, kf, vf, of, lse, dof)
+    rss = fa.flash_attention_bwd_rss(qf, kf, vf, of, lse, dof)
+    # query heads 2h of each kv-head h alone: G = 1 over the even heads
+    lost = fa.flash_attention_bwd_ref(
+        q[:, :, ::2].contiguous(), k, v, o[:, :, ::2].contiguous(),
+        lse[:, ::2].contiguous(), do[:, :, ::2].contiguous(),
+        bf16_operands=True)[1]
+    assert fa.bwd_error(dk, ref[1], rss[1]) <= 1
+    assert fa.bwd_error(lost, ref[1], rss[1]) > 1
+    assert fa.bwd_error(dq, ref[0], rss[0]) <= 1
+    assert fa.bwd_error((dq.float() * 1.01).to(torch.bfloat16), ref[0],
+                        rss[0]) > 1

@@ -9,7 +9,8 @@ weights carried across by ``params_from_numpy`` (logits 1e-4, as
 kimi with the streams of ``PagedJaxBackend``, a port of
 ``tests/test_models_smoke.py`` over every reduced architecture (the
 forward's logits, then ``Model.loss`` and every gradient against
-``jax.value_and_grad``), and the flash plain version at deepseek's head dims (192, 128) against
+``jax.value_and_grad``; also at minitron's head dim 128 and deepseek's MLA
+qk 128 + 64, v 128), and the flash plain version at deepseek's head dims (192, 128) against
 the Pallas kernel in interpret mode."""
 
 import dataclasses
@@ -459,6 +460,43 @@ def test_smoke_loss_and_grads_match_reference(arch):
         jax.tree.map(jnp.asarray, batch))
     tl, tg = value_and_grad(tm.loss, params_from_numpy(_jax_weights(arch),
                                                        "cpu"),
+                            {k: torch.from_numpy(v) for k, v in batch.items()})
+    assert np.isfinite(float(tl)) and abs(float(tl) - float(jl)) < 1e-5
+    tree_map(lambda t, j: np.testing.assert_allclose(
+        t.numpy(), np.asarray(j), rtol=0, atol=1e-6), tg, jg)
+    gnorm = sum(float(g.square().sum()) for g in tree_leaves(tg))
+    assert np.isfinite(gnorm) and gnorm > 0
+
+
+# two narrow 2-layer configs at the full-width models' head dims, where the
+# flash backward's (128, 128) and (192, 128) pairs run: minitron's GQA
+# grouping (G = 3) at head dim 128, deepseek's MLA at qk 128 + 64, v 128
+FULL_HEADS = {"minitron-4b": dict(num_layers=2, num_heads=6, num_kv_heads=2,
+                                  head_dim=128),
+              DEEPSEEK: dict(qk_nope_dim=128, qk_rope_dim=64,
+                             v_head_dim=128)}
+
+
+@pytest.mark.parametrize("arch", sorted(FULL_HEADS))
+def test_loss_and_grads_at_full_head_dims_match_reference(arch):
+    """``Model.loss`` and every gradient leaf against
+    ``jax.value_and_grad(model.loss)`` on the JAX package's weights, at
+    ``test_smoke_loss_and_grads_match_reference``'s tolerances; the
+    attention's gradient goes through ``FlashAttentionFn`` at the new
+    head-dim pair."""
+    cfg = dataclasses.replace(reduced_config(arch), **FULL_HEADS[arch])
+    jm = j_build(dataclasses.replace(j_reduced(arch), **FULL_HEADS[arch]))
+    tm = build_model(cfg)
+    dims = ((cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim)
+            if cfg.kv_lora_rank else (128, 128))
+    assert cfg.num_layers == 2 and dims in fa.BWD_HEAD_DIMS
+    weights = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(0)))
+    rng = np.random.default_rng(1)
+    batch = {k: rng.integers(0, cfg.vocab_size, (2, 16)).astype(np.int32)
+             for k in ("tokens", "labels")}
+    jl, jg = jax.value_and_grad(jm.loss)(jax.tree.map(jnp.asarray, weights),
+                                         jax.tree.map(jnp.asarray, batch))
+    tl, tg = value_and_grad(tm.loss, params_from_numpy(weights, "cpu"),
                             {k: torch.from_numpy(v) for k, v in batch.items()})
     assert np.isfinite(float(tl)) and abs(float(tl) - float(jl)) < 1e-5
     tree_map(lambda t, j: np.testing.assert_allclose(

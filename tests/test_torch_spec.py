@@ -477,6 +477,25 @@ def _requests(Request, SLOSpec):
     return reqs
 
 
+STEP_S = 0.005    # the step time both engines see in the test below
+
+
+def _fixed_step_time(be):
+    """``be`` with a step time of ``STEP_S`` whatever the step took: its
+    own ``step_time`` still runs (it flushes queued prefill and drains the
+    device), its measured seconds are dropped.  gmg grants speculation
+    depth by the SLO margin, which follows the step times, so measured
+    times would let CPU load decide which steps speculate."""
+    measured = be.step_time
+
+    def step_time(prefill_tokens, decode_ctxs, verify_tokens=0):
+        measured(prefill_tokens, decode_ctxs, verify_tokens)
+        return STEP_S
+
+    be.step_time = step_time
+    return be
+
+
 @pytest.mark.parametrize("scheduler,temperature", [
     ("vllm", 0.0), ("gmg", 0.0), ("vllm", 0.8), ("gmg", 0.8)])
 def test_spec_stream_digest_matches_jax_backend(scheduler, temperature):
@@ -490,12 +509,12 @@ def test_spec_stream_digest_matches_jax_backend(scheduler, temperature):
     geo = dict(num_blocks=32, page=16, max_len=64, seed=0,
                temperature=temperature, top_k=50 if temperature else 0)
     cfg = dict(max_batch=4, prefill_budget=16, spec_depth_max=4)
-    bj = PagedJaxBackend(**geo)
+    bj = _fixed_step_time(PagedJaxBackend(**geo))
     ej = JServeEngine(bj, j_make_scheduler(scheduler, **kw),
                       JEngineConfig(**cfg))
     ej.load(_requests(JRequest, JSLO), [])
     fj = ej.run()
-    bt = PagedTorchBackend(device="cpu", **geo)
+    bt = _fixed_step_time(PagedTorchBackend(device="cpu", **geo))
     bt.params = params_from_numpy(jax.tree.map(np.asarray, bj.params), "cpu")
     et = ServeEngine(bt, make_scheduler(scheduler, **kw),
                      EngineConfig(**cfg))
@@ -504,6 +523,7 @@ def test_spec_stream_digest_matches_jax_backend(scheduler, temperature):
     assert len(ft) == len(fj) == 4
     assert sum(len(t) for t in bt.generated.values()) == 8 + 6 + 6 + 7
     assert _digest(bt) == _digest(bj)
-    # which steps speculate follows the measured step times, so the two
-    # engines' proposal counts may differ; both must have speculated
-    assert et.spec_proposed > 0 and ej.spec_proposed > 0
+    # with the same step times both engines speculate on the same steps
+    assert et.spec_proposed > 0
+    assert (et.spec_proposed, et.spec_accepted) == (ej.spec_proposed,
+                                                    ej.spec_accepted)
