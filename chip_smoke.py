@@ -48,11 +48,21 @@ in f32 (``decode_step`` after ``prefill`` equal to ``logits``, one flash
 launch per layer per forward, and for tinyllama the paged path's logits
 equal too), the bf16 serving dtype at full depth through
 ``make_prefill_step`` / ``make_serve_step`` (8 greedy tokens, a profiled
-prefill forward with the flash kernel's and the MoE's shares), and the
-flash kernel's times at the three prefill shapes.
+prefill forward with the flash kernel's and the MoE's shares); the
+recurrent and frontend families at full width, jamba-v0.1-52b (mamba +
+attention + MoE, its depth cut to 16 of 32), xlstm-1.3b (mLSTM + sLSTM),
+musicgen-medium (audio frames, sinusoidal positions) and pixtral-12b
+(vision patches), each in f32 at a check depth (two ``decode_step``s
+after ``prefill`` equal to ``logits``; each mamba, mLSTM and sLSTM layer
+on the card equal to the CPU's), a bf16 gradient pass (every gradient
+non-zero, a flash backward launch per attention layer) and its bf16 main
+path (prefill and 8 greedy tokens through the step builders, a flash
+launch per attention layer, profiled prefill and decode); and the flash
+kernel's times at six prefill shapes (a kernel record at each family's).
 Then training: the flash backward kernel against its plain version (every
 head-dim pair of ``BWD_HEAD_DIMS``, S from 1 to 2048, causal and full, f32
-and bf16, G = 1 and 8; the forward's log-sum-exp; two calls bitwise equal;
+and bf16, G = 1 and 8; bf16 at each family's gradient-pass shape; the
+forward's log-sum-exp; two calls bitwise equal;
 the bf16 wgmma body within ``fa.bwd_error``'s bound of the plain backward
 in f32) and ``FlashAttentionFn`` against autograd through the plain
 forward; an
@@ -126,6 +136,11 @@ WIDE_STEPS = 2
 # (src/repro_torch/kernels/flash_attention.py, derived beside the
 # constants)
 BWD_S = (1, 63, 65, 200, 1024, 2048)
+# the backward at the families' gradient passes (bf16, causal; B=1):
+# (B, S, H, KV, Dk, Dv) of jamba (S 256) and pixtral (1024 patches + 256
+# tokens), G = 4 at D 128, and of musicgen (MHA, D 64)
+FLASH_FAMILY_BWD = [(1, 256, 32, 8, 128, 128), (1, 1280, 32, 8, 128, 128),
+                    (1, 256, 24, 24, 64, 64)]
 # card-vs-CPU f32 gradients: max |difference| over each leaf's largest CPU
 # value (sums over d = 2048 / 5632 and 512 tokens in other orders)
 TRAIN_GRAD_RTOL = 1e-4
@@ -147,6 +162,24 @@ FULLSEQ = {"tinyllama-1.1b": ((4, 512), (4, 1024)),
 # 4 (its dense layer and 3 MoE layers) about 8.5 GB
 F32_LAYERS = {"deepseek-v2-lite-16b": 4}
 GREEDY_STEPS = 8
+# the recurrent and frontend families at full width: (B, S) of the bf16
+# main path, its depth, the depth of the f32 checks and of the bf16
+# gradient pass, and (B, S) of the f32 checks (the gradient pass: B=1 at
+# the same S).  jamba is CUT to 16 of 32 layers (2 of 4 units: 48.5 GiB in
+# bf16; all 32 take 96.1 GiB), its f32 checks to one unit (8 layers, 49.5
+# GiB, drawn on their own: they do not fit beside the bf16 weights);
+# pixtral's f32 checks to its first 4 layers (9.1 GiB).  xlstm's S = 2048 is
+# two of the mLSTM's 1024-key chunks, so the online merge runs; pixtral's
+# sequences are 1024 patches and the text after them
+RECURRENT = {"jamba-v0.1-52b": ((2, 1024), 16, 8, (2, 256)),
+             "xlstm-1.3b": ((2, 2048), 48, 48, (2, 256)),
+             "musicgen-medium": ((4, 1024), 48, 48, (2, 256)),
+             "pixtral-12b": ((2, 2048), 40, 4, (2, 1280))}
+# one mixer on the card against the CPU (f32, TF32 off, B=1, S=256, the
+# same weights and input): max |difference| over the tensor's largest CPU
+# value (sums over d = 4096 or 2048 in other orders, then a 256-step
+# recurrence)
+MIXER_RTOL = 1e-4
 # the MoE model served through the paged path, at full width and cut depth:
 # at depth 1 its 384 experts take 33.8 GB, attention 0.26 GB, embed and
 # lm_head 4.7 GB and the lm_head's f32 copy 4.7 GB, about 43.5 GB; depth 2
@@ -193,6 +226,15 @@ FLASH_MAIN = [(4, 1024, 32, 4, 64, 64, "bfloat16", True),
               (4, 512, 32, 4, 64, 64, "float32", True),
               (2, 256, 40, 40, 96, 64, "float32", True),
               (2, 256, 16, 16, 192, 128, "float32", True)]
+# the recurrent and frontend families' attention shapes: each family's
+# bf16 main path (its kernel record's shape), then the f32 checks'
+# (musicgen MHA at D 64; pixtral and jamba G = 4 at D 128)
+FLASH_FAMILY = {"musicgen-medium": (4, 1024, 24, 24, 64, 64),
+                "pixtral-12b": (2, 2048, 32, 8, 128, 128),
+                "jamba-v0.1-52b": (2, 1024, 32, 8, 128, 128)}
+FLASH_FAMILY_F32 = [(2, 256, 24, 24, 64, 64, "float32", True),
+                    (2, 1280, 32, 8, 128, 128, "float32", True),
+                    (2, 256, 32, 8, 128, 128, "float32", True)]
 # the capped mixed workload of the quickstart's real-execution mode
 WORKLOAD = dict(rate=1.5, duration=6.0, seed=0, mix=(2, 1, 1), prompt_cap=40,
                 output_cap=12, slo_scale=20.0)
@@ -1111,14 +1153,17 @@ def verify_vs_decode(torch, be, rows) -> None:
           "verify logits differ from decode logits")
 
 
-def profiled(torch, fn, reps=10):
+def profiled(torch, fn, reps=10, warmup=3, cpu=True):
     """One call's time: the host clock over ``reps`` calls ending in a
-    synchronise (after three warm-up calls), and the profiler's device
-    time by kernel over ``reps`` more.  Returns (wall ms, device-busy ms,
-    kernels, [(ms, launches, name)] largest first), all per call."""
+    synchronise (after ``warmup`` warm-up calls), and the profiler's device
+    time by kernel over ``reps`` more (``cpu=False``: the device's
+    activity alone, for calls of hundreds of thousands of kernels, whose
+    host-side events take the profiler minutes to sort).  Returns (wall
+    ms, device-busy ms, kernels, [(ms, launches, name)] largest first),
+    all per call."""
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1126,8 +1171,8 @@ def profiled(torch, fn, reps=10):
         fn()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) / reps * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * cpu
+                 + [ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
@@ -1443,13 +1488,18 @@ def paged_ptxas_report(log, pa) -> None:
           "no paged kernel in the build's ptxas report")
 
 
-def check_flash(torch, fa) -> dict:
+def check_flash(torch, fa) -> tuple:
     """The flash kernel against its plain version at every case of
-    ``FLASH_SWEEP`` and ``FLASH_MAIN``, within the reference's tolerances
-    (3e-5 f32, 2.5e-2 bf16; ``tests/test_kernels.py``).  Returns the
-    largest difference at the main path's shapes, by (Dk, Dv)."""
-    worst = {}
-    for i, case in enumerate(FLASH_SWEEP + FLASH_MAIN):
+    ``FLASH_SWEEP``, ``FLASH_MAIN``, ``FLASH_FAMILY`` and
+    ``FLASH_FAMILY_F32``, within the reference's tolerances (3e-5 f32,
+    2.5e-2 bf16; ``tests/test_kernels.py``).  Returns the largest
+    difference at the full-sequence models' shapes, by (Dk, Dv), and at
+    each recurrent or frontend family's main-path shape, by arch."""
+    family = {(*shape, "bfloat16", True): arch
+              for arch, shape in FLASH_FAMILY.items()}
+    worst, family_err = {}, {}
+    for i, case in enumerate(FLASH_SWEEP + FLASH_MAIN + list(family)
+                             + FLASH_FAMILY_F32):
         B, S, H, KV, Dk, Dv, dtype, causal = case
         q, k, v = flash_inputs(torch, B, S, H, KV, Dk, Dv, dtype, 600 + i)
         out = fa.flash_attention(q, k, v, causal=causal)
@@ -1465,7 +1515,9 @@ def check_flash(torch, fa) -> dict:
               f"flash_attention {label}: {err} > {tol}")
         if case in FLASH_MAIN:
             worst[Dk, Dv] = max(worst.get((Dk, Dv), 0.0), err)
-    return worst
+        if case in family:
+            family_err[family[case]] = err
+    return worst, family_err
 
 
 def check_flash_mask(torch, fa) -> None:
@@ -1655,7 +1707,7 @@ def fullseq(torch, fa, arch) -> int:
 
 
 def flash_times(torch, fa, flush) -> dict:
-    """The flash kernel at the three prefill shapes (bf16, causal): kernel,
+    """The flash kernel at the six prefill shapes (bf16, causal): kernel,
     plain version and one SDPA call on (B, H, S, D) with K/V expanded to H
     heads beforehand, medians of CUDA events with the L2 flushed.  The
     bound is that of what the bf16 kernel computes: q·k and p·v (p rounded
@@ -1667,7 +1719,8 @@ def flash_times(torch, fa, flush) -> dict:
     rows = {}
     shapes = {"tinyllama-1.1b": (4, 1024, 32, 4, 64, 64),
               "minicpm3-4b": (2, 1024, 40, 40, 96, 64),
-              "deepseek-v2-lite-16b": (2, 1024, 16, 16, 192, 128)}
+              "deepseek-v2-lite-16b": (2, 1024, 16, 16, 192, 128),
+              **FLASH_FAMILY}
     for i, (arch, (B, S, H, KV, Dk, Dv)) in enumerate(shapes.items()):
         q, k, v = flash_inputs(torch, B, S, H, KV, Dk, Dv, "bfloat16",
                                700 + i)
@@ -1698,6 +1751,275 @@ def flash_times(torch, fa, flush) -> dict:
               f"SDPA {lib_ms:.4f} ms")
         rows[arch] = (ms, plain_ms, lib_ms, bound_ms, by)
     return rows
+
+
+# ---------------------------------------------------------------------------
+# the recurrent and frontend families: jamba (mamba + attention + MoE),
+# xlstm (mLSTM + sLSTM), musicgen (audio frames, sinusoidal positions),
+# pixtral (vision patches)
+# ---------------------------------------------------------------------------
+def attn_layers(cfg) -> int:
+    """Number of attention layers of ``cfg`` (one flash launch each per
+    forward, one backward launch each per gradient pass)."""
+    return (sum(m == "attn" for m, _ in cfg.prefix_pattern)
+            + cfg.num_units * sum(m == "attn" for m, _ in cfg.unit_pattern))
+
+
+def family_batch(torch, model, B, S, g, labels=True):
+    """A batch of S positions on the card with the keys, shapes and dtypes
+    of ``model.input_specs`` (int32 tokens and labels uniform over the
+    vocabulary, frames and patches normal in the model dtype)."""
+    from repro_torch.configs.shapes import Shape
+
+    specs = model.input_specs(
+        Shape("family", S, B, "train" if labels else "prefill"))["batch"]
+    return {k: torch.randint(0, model.cfg.vocab_size, m.shape, generator=g,
+                             device="cuda", dtype=m.dtype)
+            if m.dtype == torch.int32 else
+            torch.randn(m.shape, generator=g, device="cuda").to(m.dtype)
+            for k, m in specs.items()}
+
+
+def mixers_vs_cpu(torch, cfg, params) -> None:
+    """Each recurrent mixer of ``cfg`` at full width (its first layer, f32
+    weights ``params``) on the card against the CPU on the same weights and
+    input (B=1, S=256, TF32 off): the prefill output and state, then one
+    decode step's output and state, each within ``MIXER_RTOL`` of the
+    tensor's largest CPU value."""
+    from repro_torch.models.convert import tree_leaves, tree_map
+    from repro_torch.models.transformer import MIXERS
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((1, 257, cfg.d_model), generator=g, device="cuda")
+    for mixer in ("mamba", "mlstm", "slstm"):
+        key = next((f"l{i}" for i, (m, _) in enumerate(cfg.unit_pattern)
+                    if m == mixer), None)
+        if key is None:
+            continue
+        fn = MIXERS[mixer]
+        lp = {k: v[0] for k, v in params["units"][key].items()}
+        lp_cpu = {k: v.cpu() for k, v in lp.items()}
+        outs = []
+        for p, d in ((lp, "cuda"), (lp_cpu, "cpu")):
+            xd = x.to(d)
+            y, cache = fn(xd[:, :256], p, cfg, "prefill")
+            state = tree_map(torch.clone, cache)
+            y1, _ = fn(xd[:, 256:], p, cfg, "decode", cache=cache)
+            outs.append([y, *tree_leaves(state), y1, *tree_leaves(cache)])
+        torch.cuda.synchronize()
+        worst = max(((a.cpu() - b).abs().max() / b.abs().max()).item()
+                    for a, b in zip(*outs))
+        print(f"  {cfg.name} {mixer} layer f32 card vs CPU (B=1 S=256 "
+              f"prefill, then a decode step; d {cfg.d_model}): max|card - "
+              f"CPU| {worst:.3e} of each tensor's largest CPU value "
+              f"(tolerance {MIXER_RTOL:g})")
+        check(worst <= MIXER_RTOL, f"{cfg.name} {mixer}: card vs CPU "
+              f"{worst:.3e}")
+
+
+def mixer_share(torch, cfg, params, x, busy_ms, mixer) -> str:
+    """One ``mixer`` layer's prefill on ``x`` profiled alone, times the
+    model's layers of that mixer, as a share of a forward's device-busy
+    ``busy_ms``."""
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.models.transformer import MIXERS
+
+    key = next(f"l{i}" for i, (m, _) in enumerate(cfg.unit_pattern)
+               if m == mixer)
+    lp = {k: v[0] for k, v in params["units"][key].items()}
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    slow = mixer == "slstm"               # a kernel per op per step of S
+    _, one_ms, n, _ = profiled(
+        torch, lambda: MIXERS[mixer](h, lp, cfg, "prefill"),
+        reps=1 if slow else 5, warmup=1, cpu=not slow)
+    layers = cfg.num_units * sum(m == mixer for m, _ in cfg.unit_pattern)
+    return (f"{mixer} {one_ms:.3f} ms device busy a layer ({n:.0f} kernels)"
+            f" x {layers} = {one_ms * layers:.3f} ms "
+            f"({one_ms * layers / busy_ms:.3f} of busy)")
+
+
+def family(torch, fa, arch, card) -> int:
+    """One recurrent or frontend family at full width (random weights from
+    seed 0; depths and shapes from ``RECURRENT``).  In f32 at the check
+    depth: ``decode_step`` for two tokens after ``prefill`` of S-2
+    positions equals ``logits`` at S-2 and S-1 within the reference's
+    rtol = atol = 2e-2 (for audio frames the last two frames are the
+    decoded tokens' embeddings), one flash launch per attention layer per
+    forward; each recurrent mixer on the card against the CPU
+    (``mixers_vs_cpu``).  In bf16 at the check depth, one gradient pass of
+    ``Model.loss`` (B=1): the loss finite, every gradient slice finite and
+    non-zero but those of leaves the loss does not read, one flash
+    backward launch per attention layer.  In bf16 at the main depth, the
+    main path: ``make_prefill_step`` then ``make_serve_step`` for
+    ``GREEDY_STEPS`` greedy tokens, flash launches counted from 0 just
+    before and read just after (one per attention layer); then one
+    profiled prefill forward (flash, each mixer's and the MoE's shares)
+    and one profiled decode step.  Each stage's weights are drawn anew and
+    freed after it.  Returns (the main path's flash launches, the peak
+    memory allocated)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.steps import (make_prefill_step, make_serve_step,
+                                          value_and_grad)
+    from repro_torch.models.convert import tree_map
+    from repro_torch.models.model import build_model
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    (Bm, Sm), depth, check_depth, (B, S) = RECURRENT[arch]
+    full = get_config(arch)
+    check(full.dtype == "bfloat16", f"{arch} serves in bf16")
+    mixers = sorted({m for m, _ in full.unit_pattern})
+    cut = (f"depth CUT to {depth} of {full.num_layers}"
+           if depth < full.num_layers else f"full depth {depth}")
+    print(f"  {arch} (d {full.d_model}, {mixers} mixers, frontend "
+          f"{full.frontend}, positional {full.positional}, vocab "
+          f"{full.vocab_size}): bf16 main path {cut}; f32 checks and the "
+          f"gradient pass at depth {check_depth}")
+
+    # f32 at the check depth
+    m32 = build_model(dataclasses.replace(full, dtype="float32",
+                                          num_layers=check_depth))
+    p32 = m32.init(torch.Generator(device="cuda").manual_seed(0))
+    g = torch.Generator(device="cuda").manual_seed(1)
+    batch = family_batch(torch, m32, B, S, g, labels=False)
+    toks = torch.randint(0, full.vocab_size, (B, 2), generator=g,
+                         device="cuda", dtype=torch.int32)
+    if full.frontend == "audio_frames":
+        batch["frames"][:, S - 2:] = p32["embed"][toks.long()]
+        pre = {"frames": batch["frames"][:, :S - 2]}
+    else:
+        batch["tokens"][:, -2:] = toks
+        pre = dict(batch, tokens=batch["tokens"][:, :-2])
+    counts = [fa.launches["flash_attention"]]
+    full_logits = m32.logits(p32, batch)
+    counts.append(fa.launches["flash_attention"])
+    _, caches = m32.prefill(p32, pre)
+    counts.append(fa.launches["flash_attention"])
+    grown = m32.init_caches(B, S, "cuda")
+    tree_map(lambda z, c: z[tuple(slice(0, n) for n in c.shape)].copy_(c),
+             grown, caches)
+    diffs = []
+    for i in range(2):
+        dec, _ = m32.decode_step(p32, grown, toks[:, i:i + 1], S - 2 + i)
+        diffs.append((dec - full_logits[:, S - 2 + i]).abs().max().item())
+        check(bool(torch.allclose(dec, full_logits[:, S - 2 + i], rtol=2e-2,
+                                  atol=2e-2)),
+              f"{arch}: decode step {i + 1} differs from logits")
+    counts.append(fa.launches["flash_attention"])
+    torch.cuda.synchronize()
+    per = [b - a for a, b in zip(counts, counts[1:])]
+    n32 = attn_layers(m32.cfg)
+    print(f"  {arch} f32 depth {check_depth} B={B} S={S}: two decode_steps "
+          f"after prefill of S-2 vs logits at S-2, S-1: max|diff| "
+          + ", ".join(f"{d:.3e}" for d in diffs) + f"; flash launches per "
+          f"forward (logits, prefill, two decode_steps) {per}")
+    check(bool(torch.isfinite(full_logits).all()) and tuple(
+        full_logits.shape) == (B, S, full.vocab_size), f"{arch}: f32 logits")
+    check(per == [n32, n32, 0], f"{arch}: flash launches {per}, want "
+          f"[{n32}, {n32}, 0]")
+    mixers_vs_cpu(torch, m32.cfg, p32)
+    stages = {"f32 checks": time.perf_counter() - t0}
+    # the model too: it keeps its lm_head's f32 copy (here the head itself)
+    del p32, full_logits, caches, grown, dec, m32
+    torch.cuda.empty_cache()
+
+    # bf16 gradient pass at the check depth, B=1
+    mg = build_model(dataclasses.replace(full, num_layers=check_depth))
+    params = mg.init(torch.Generator(device="cuda").manual_seed(0))
+    gbatch = family_batch(torch, mg, 1, S, g)
+    before = fa.launches["flash_attention_bwd"]
+    loss, grads = value_and_grad(mg.loss, params, gbatch)
+    torch.cuda.synchronize()
+    launched = fa.launches["flash_attention_bwd"] - before
+    # the loss of audio frames never reads the token embeddings (decode
+    # alone does)
+    unread = {"embed"} if full.frontend == "audio_frames" else set()
+    read = [(n, gr) for n, gr, _ in grad_slices(grads) if n not in unread]
+    zero = [n for n, gr in read if not (
+        bool(torch.isfinite(gr).all()) and bool(gr.abs().sum() > 0))]
+    print(f"  {arch} bf16 gradient pass, depth {check_depth}, B=1 S={S}: "
+          f"loss {loss.item():.6f}; {len(read)} gradient slices read by "
+          f"the loss, finite and non-zero: {len(read) - len(zero)}"
+          + (f" (not read: {sorted(unread)})" if unread else "")
+          + f"; flash backward launches {launched}")
+    check(math.isfinite(loss.item()), f"{arch}: non-finite loss")
+    check(not zero, f"{arch}: zero or non-finite gradients: {zero}")
+    check(launched == attn_layers(mg.cfg), f"{arch}: {launched} flash "
+          f"backward launches, want {attn_layers(mg.cfg)}")
+    del params, grads, gbatch, read, mg
+    torch.cuda.empty_cache()
+    stages["gradient pass"] = time.perf_counter() - t0 - sum(stages.values())
+
+    # the main path, bf16 at the main depth
+    cfg = dataclasses.replace(full, num_layers=depth)
+    model, prefill_step = make_prefill_step(cfg)
+    _, serve_step = make_serve_step(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    mbatch = family_batch(torch, model, Bm, Sm, g, labels=False)
+    fa.launches["flash_attention"] = 0
+    t1 = time.perf_counter()
+    logits, caches = prefill_step(params, mbatch)
+    grown = model.init_caches(Bm, Sm + GREEDY_STEPS, "cuda")
+    tree_map(lambda z, c: z[tuple(slice(0, n) for n in c.shape)].copy_(c),
+             grown, caches)
+    del caches
+    out = []
+    for i in range(GREEDY_STEPS):
+        nxt = logits.argmax(-1).to(torch.int32)[:, None]
+        out.append(nxt)
+        logits, grown = serve_step(params, grown, nxt, Sm + i)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = fa.launches["flash_attention"]
+    toks_out = torch.cat(out, dim=1).cpu().tolist()
+    digest = hashlib.sha256(repr(toks_out).encode()).hexdigest()[:16]
+    print(f"  {arch} bf16 B={Bm} S={Sm}: make_prefill_step + {GREEDY_STEPS} "
+          f"make_serve_step greedy tokens in {wall:.3f} s wall, flash "
+          f"launches {launches}, token digest {digest}")
+    check(launches == attn_layers(cfg), f"{arch}: {launches} flash "
+          f"launches on the main path, want {attn_layers(cfg)}")
+    check(bool(torch.isfinite(logits).all())
+          and tuple(logits.shape) == (Bm, full.vocab_size)
+          and all(0 <= t < full.vocab_size for r in toks_out for t in r),
+          f"{arch}: serving logits / tokens")
+
+    stages["main path"] = time.perf_counter() - t0 - sum(stages.values())
+    # one profiled prefill forward and one profiled decode step
+    slow = "slstm" in mixers          # a kernel per op per step of S
+    wall_ms, busy_ms, n, top = profiled(
+        torch, lambda: prefill_step(params, mbatch), reps=1 if slow else 5,
+        warmup=0 if slow else 3, cpu=not slow)     # the main path warmed it
+    x = model._embed(params, mbatch, "prefill")
+    shares = [mixer_share(torch, cfg, params, x, busy_ms, m)
+              for m in mixers if m != "attn"]
+    if moe_layers(cfg):
+        shares.append(moe_share(torch, cfg, params, x, busy_ms))
+    flash_ms = sum(ms for ms, _, key in top if "flash_wgmma_kernel" in key)
+    print(f"  {arch} bf16 prefill forward B={Bm} S={Sm}: wall "
+          f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms (idle share "
+          f"{1 - busy_ms / wall_ms:.3f}), {n:.0f} kernels, flash kernel "
+          f"{flash_ms:.3f} ms ({flash_ms / busy_ms:.3f} of busy)"
+          + "".join("; " + s for s in shares))
+    for ms, count, key in top[:8]:
+        print(f"    {ms:.4f} ms x{count} {key[:90]}")
+    tok = out[-1]
+    wall_ms, busy_ms, n, top = profiled(
+        torch, lambda: serve_step(params, grown, tok, Sm + GREEDY_STEPS - 1))
+    print(f"  {arch} bf16 decode step B={Bm} at position "
+          f"{Sm + GREEDY_STEPS - 1}: wall {wall_ms:.3f} ms, device busy "
+          f"{busy_ms:.3f} ms (idle share {1 - busy_ms / wall_ms:.3f}), "
+          f"{n:.0f} kernels")
+    for ms, count, key in top[:5]:
+        print(f"    {ms:.4f} ms x{count} {key[:90]}")
+    del params, grown, logits, x, model
+    torch.cuda.empty_cache()
+    stages["profiles"] = time.perf_counter() - t0 - sum(stages.values())
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  {arch}: peak allocated {peak / 2**30:.2f} GiB; "
+          f"{time.perf_counter() - t0:.1f} s ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in stages.items())
+          + f"; {card})")
+    return launches, peak
 
 
 # ---------------------------------------------------------------------------
@@ -1783,7 +2105,8 @@ def check_bwd_case(torch, fa, case, dtype, seed) -> tuple:
 
 def check_bwd_all(torch, fa) -> None:
     """The backward kernel over ``BWD_HEAD_DIMS`` x S in ``BWD_S`` x causal
-    and full x f32 and bf16 x G in {1, 8}, a line per group of S; then
+    and full x f32 and bf16 x G in {1, 8}, a line per group of S; at the
+    families' gradient-pass shapes (``FLASH_FAMILY_BWD``); then
     ``FlashAttentionFn`` (both kernels) against torch autograd through
     ``flash_attention_ref`` in f32.  (The training shape itself is checked
     in ``bwd_times``.)"""
@@ -1806,6 +2129,13 @@ def check_bwd_all(torch, fa) -> None:
                           + f", at most {max(f for _, f in errs):.3f} of the "
                           "tolerance; lse within 1e-4; two calls bitwise "
                           "equal")
+    for i, (B, S, H, KV, Dk, Dv) in enumerate(FLASH_FAMILY_BWD):
+        err, frac = check_bwd_case(torch, fa, (B, S, H, KV, Dk, Dv, True),
+                                   "bfloat16", 1500 + 2 * i)
+        print(f"  bfloat16 causal B={B} S={S} H={H} KV={KV} Dk={Dk} Dv={Dv}"
+              f" (a family's gradient pass): dq/dk/dv max|diff| {err:.2e}, "
+              f"{frac:.3f} of the tolerance; lse within 1e-4; two calls "
+              "bitwise equal")
     print(f"  ({bwd_tolerance(fa)})")
     for Dk, Dv, causal in ((64, 64, True), (96, 64, False)):
         q, k, v = flash_inputs(torch, 2, 300, 8, 2, Dk, Dv, "float32", 77)
@@ -2690,10 +3020,20 @@ def main() -> int:
     # 6. the full-sequence forward: the flash kernel against its plain
     # version, then each model in f32 and on its bf16 main path
     print("flash_attention vs its plain version:")
-    flash_err = check_flash(torch, fa)
+    flash_err, family_err = check_flash(torch, fa)
     check_flash_mask(torch, fa)
     print("full-sequence forward, full width (random weights from seed 0):")
     flash_launches = {arch: fullseq(torch, fa, arch) for arch in FULLSEQ}
+    # 6b. the recurrent and frontend families: f32 checks, mixers on the
+    # card against the CPU, a bf16 gradient pass, the bf16 main path
+    print("recurrent and frontend families, full width (random weights "
+          "from seed 0):")
+    t_fam = time.perf_counter()
+    family_runs = {arch: family(torch, fa, arch, card) for arch in RECURRENT}
+    family_launches = {a: n for a, (n, _) in family_runs.items()}
+    print(f"  families: {time.perf_counter() - t_fam:.1f} s, peak allocated "
+          f"{max(p for _, p in family_runs.values()) / 2**30:.2f} GiB; main "
+          f"path flash launches {family_launches}")
     print("flash_attention times (bf16, causal, L2 flushed; median of CUDA "
           "events):")
     ft = flash_times(torch, fa, flush)
@@ -2712,6 +3052,19 @@ def main() -> int:
                          else max(flash_err.values())),
             ms=ms, plain_ms=plain_ms,
             bound_ms=bound_ms, bound_by=by, library_ms=lib_ms))
+    # one record per family with attention, at its main path's shape (its
+    # launches, its error there)
+    for arch, name in (
+            ("musicgen-medium", "musicgen-medium: H 24 MHA, D 64"),
+            ("pixtral-12b", "pixtral-12b: G 4, D 128, S 2048"),
+            ("jamba-v0.1-52b", "jamba-v0.1-52b: G 4, D 128, S 1024")):
+        ms, plain_ms, lib_ms, bound_ms, by = ft[arch]
+        records.append(dict(
+            name=f"flash_attention ({name})", route="cuda",
+            source=FLASH_SOURCE, replaces=FLASH_REPLACES,
+            launches=family_launches[arch], max_abs_err=family_err[arch],
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+            library_ms=lib_ms))
 
     # 7. training: the backward kernel against its plain version, the f32
     # step on the card against the CPU's, the main path at full width (its

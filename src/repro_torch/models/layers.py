@@ -1,7 +1,7 @@
-"""Shared building blocks of the model: RMS norm, rotary positions, SwiGLU
-MLP, LM loss.  Norm variance, rope angles and the loss run in float32
-regardless of the activation dtype, as in the reference
-(``repro.models.layers``)."""
+"""Shared building blocks of the model: RMS norm, rotary and sinusoidal
+positions, SwiGLU MLP, LM loss.  Norm variance, position angles and the
+loss run in float32 regardless of the activation dtype, as in the
+reference (``repro.models.layers``)."""
 
 from __future__ import annotations
 
@@ -20,6 +20,13 @@ def rms_norm(x, w, eps: float = 1e-5):
 
 def silu(x):
     return x * torch.sigmoid(x)
+
+
+def softplus(x):
+    """JAX's softplus, log(1 + e^x) as ``logaddexp(x, 0)`` (torch's
+    ``softplus`` switches to x above a threshold of 20)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
+                                          device=x.device))
 
 
 @functools.lru_cache(maxsize=16)
@@ -53,6 +60,23 @@ def apply_rope(x, cos, sin):
     x1f, x2f = xf[..., :half], xf[..., half:]
     out = torch.cat([x1f * cos - x2f * sin, x1f * sin + x2f * cos], dim=-1)
     return out.to(x.dtype)
+
+
+@functools.lru_cache(maxsize=16)
+def _sin_freq(d_model: int, device: torch.device):
+    """Sinusoidal frequencies, made in float64 with numpy and rounded to
+    float32, as the reference does with 64-bit mode off; cached per device
+    as ``_inv_freq``.  Callers must not modify the tensor."""
+    half = d_model // 2
+    freq = np.exp(-np.log(10000.0) * np.arange(half) / half)
+    return torch.as_tensor(freq.astype(np.float32), device=device)
+
+
+def sinusoidal_embedding(positions: torch.Tensor, d_model: int):
+    """positions: int tensor (S,) or (B, S) -> (..., d_model) f32 table,
+    sines in the first half, cosines in the second."""
+    ang = positions.float()[..., None] * _sin_freq(d_model, positions.device)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def mlp(x, p):

@@ -1,9 +1,19 @@
 """The reference's model API (``repro.models.model``) on PyTorch tensors,
-for "attn" (GQA) and "mla" stacks with "mlp", "moe" or "none" FFNs: the
-training loss (``loss``), the full-sequence forward (``logits``,
-``prefill``, ``decode_step`` over contiguous caches) and the paged-serving
-entry points (``prefill_paged``, ``decode_paged``, ``verify_paged``; GQA
-stacks with any FFN).
+for "attn" (GQA), "mla", "mamba", "mlstm" and "slstm" mixers with "mlp",
+"moe" or "none" FFNs: the training loss (``loss``), the full-sequence
+forward (``logits``, ``prefill``, ``decode_step`` over contiguous and
+recurrent caches), ``cache_specs`` / ``input_specs`` and the
+paged-serving entry points (``prefill_paged``, ``decode_paged``,
+``verify_paged``; GQA stacks with any FFN, rope or no positions and no
+frontend, as the reference's ``supports_paged``).
+
+Batch dict keys by frontend (``input_specs``):
+  none            : tokens (B,S) int32, labels (B,S) int32
+  audio_frames    : frames (B,S,D) model dtype, labels (B,S) int32
+  vision_patches  : patches (B,P,D), tokens (B,S-P) int32, labels (B,S)
+                    int32 (the loss masked to the text positions)
+Decode takes tokens for every frontend; ``positional == "sinusoidal"``
+adds the sinusoidal table to the embeddings.
 
 Parameters are a plain dict of tensors in the reference's layout:
 ``embed`` (V, d); ``prefix`` {"l{i}": layer}; ``units`` {"l{i}": layer},
@@ -16,7 +26,9 @@ H, v_head), wo (H, v_head, d); an "mlp" FFN ln2, w_gate/w_up (d, d_ff),
 w_down (d_ff, d); a "moe" FFN ln2, router (d, E), w_gate/w_up (E, d,
 d_ff_expert), w_down (E, d_ff_expert, d) and, with shared experts,
 shared_gate/shared_up (d, n_shared * d_ff_expert), shared_down
-(n_shared * d_ff_expert, d).  With the same layout, weights carried over
+(n_shared * d_ff_expert, d).  Mamba and xLSTM layers hold ln1 and the
+leaves named in ``models/mamba.py`` and ``models/xlstm.py``; a layer with
+an FFN of "none" has no ln2.  With the same layout, weights carried over
 from the JAX package (``convert.params_from_numpy``) compute the same
 function.
 """
@@ -30,9 +42,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.shapes import Shape
 from repro_torch.models.attention import VerifyWindow
-from repro_torch.models.layers import lm_loss, rms_norm
-from repro_torch.models.transformer import stack_apply, stack_apply_paged
+from repro_torch.models.layers import lm_loss, rms_norm, sinusoidal_embedding
+from repro_torch.models.transformer import (FFNS, MIXERS, stack_apply,
+                                            stack_apply_paged)
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -47,15 +61,17 @@ class Model:
 
     # ------------------------------------------------------------------
     def init(self, generator: torch.Generator) -> Dict[str, Any]:
-        """Random weights (normal, std 0.02; norms ones) on the generator's
-        device, in the model dtype."""
+        """Random weights (normal, std 0.02, mamba's w_dt 0.1; norms ones)
+        on the generator's device, in the model dtype; mamba's dt_bias
+        (zeros), A_log (log 1..d_state on every channel) and D (ones) in
+        float32, as the reference's ``_init_layer``."""
         cfg = self.cfg
         dt, dev = _dtype(cfg), generator.device
 
-        def dense(*shape):
+        def dense(*shape, scale=0.02):
             w = torch.randn(shape, generator=generator, device=dev,
                             dtype=torch.float32)
-            return (w * 0.02).to(dt)
+            return (w * scale).to(dt)
 
         def experts(*shape):
             """(E, a, b) expert weights (after any leading stack dim),
@@ -67,19 +83,50 @@ class Model:
             return w
 
         def layer(mixer, ffn, stack=0):
-            if mixer not in ("attn", "mla") or ffn not in ("mlp", "moe",
-                                                           "none"):
-                raise ValueError(f"the port supports attn/mla layers with "
-                                 f"mlp/moe/none FFNs, got {(mixer, ffn)}")
+            if mixer not in MIXERS or ffn not in FFNS:
+                raise ValueError(f"the port supports {sorted(MIXERS)} layers "
+                                 f"with {FFNS} FFNs, got {(mixer, ffn)}")
             lead = (stack,) if stack else ()
             d, H, KV, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                             cfg.resolved_head_dim)
 
-            def ones(*shape):
-                return torch.ones(lead + shape, dtype=dt, device=dev)
+            def ones(*shape, dtype=dt):
+                return torch.ones(lead + shape, dtype=dtype, device=dev)
+
+            def zeros(*shape, dtype=dt):
+                return torch.zeros(lead + shape, dtype=dtype, device=dev)
 
             p = {"ln1": ones(d)}
-            if mixer == "attn":
+            if mixer == "mamba":
+                di, ds = cfg.mamba_d_inner, cfg.mamba_d_state
+                alog = torch.log(torch.arange(1, ds + 1, dtype=torch.float32,
+                                              device=dev))
+                p.update(w_in=dense(*lead, d, 2 * di),
+                         conv_w=dense(*lead, cfg.mamba_d_conv, di),
+                         conv_b=zeros(di),
+                         w_x=dense(*lead, di, cfg.resolved_dt_rank + 2 * ds),
+                         w_dt=dense(*lead, cfg.resolved_dt_rank, di,
+                                    scale=0.1),
+                         dt_bias=zeros(di, dtype=torch.float32),
+                         A_log=alog.expand(lead + (di, ds)).clone(),
+                         D=ones(di, dtype=torch.float32),
+                         w_out=dense(*lead, di, d))
+            elif mixer in ("mlstm", "slstm"):
+                Hx = cfg.xlstm_num_heads
+                dh = d // Hx
+                if mixer == "mlstm":
+                    p.update(w_q=dense(*lead, d, Hx, dh),
+                             w_k=dense(*lead, d, Hx, dh),
+                             w_v=dense(*lead, d, Hx, dh),
+                             w_i=dense(*lead, d, Hx), w_f=dense(*lead, d, Hx),
+                             w_og=dense(*lead, d, d),
+                             w_down=dense(*lead, d, d))
+                else:
+                    p.update({w: dense(*lead, d, Hx, dh)
+                              for w in ("w_z", "w_i", "w_f", "w_o")})
+                    p.update({r: dense(*lead, Hx, dh, dh)
+                              for r in ("r_z", "r_i", "r_f", "r_o")})
+            elif mixer == "attn":
                 p.update(wq=dense(*lead, d, H, hd),
                          wk=dense(*lead, d, KV, hd),
                          wv=dense(*lead, d, KV, hd),
@@ -128,15 +175,28 @@ class Model:
     # ------------------------------------------------------------------
     # Full-sequence forward (the reference's logits / prefill / decode_step)
     # ------------------------------------------------------------------
-    def _embed(self, params, tokens):
-        """Token embeddings; frontend "none" with rope or no positional
-        encoding (rope is applied inside attention)."""
+    def _embed(self, params, batch, mode, index=None):
+        """The stack's input (B, S, d) in the model dtype, as the
+        reference's ``_embed``: token embeddings in decode (``index``, the
+        (1,) position tensor) and for frontend "none"; the frames for
+        "audio_frames"; the patches before the token embeddings for
+        "vision_patches"; plus the sinusoidal table when ``positional`` is
+        "sinusoidal" (rope is applied inside attention)."""
         cfg = self.cfg
-        if cfg.frontend != "none" or cfg.positional not in ("rope", "none"):
-            raise ValueError(f"the port embeds tokens with rope or no "
-                             f"positions, got frontend {cfg.frontend!r}, "
-                             f"positional {cfg.positional!r}")
-        return params["embed"][tokens.long()]
+        dt = _dtype(cfg)
+        if mode == "decode" or cfg.frontend not in ("audio_frames",
+                                                    "vision_patches"):
+            x = params["embed"][batch["tokens"].long()]
+        elif cfg.frontend == "audio_frames":
+            x = batch["frames"].to(dt)
+        else:
+            te = params["embed"][batch["tokens"].long()]
+            x = torch.cat([batch["patches"].to(dt), te], dim=1)
+        if cfg.positional == "sinusoidal":
+            pos = (index if mode == "decode"
+                   else torch.arange(x.shape[1], device=x.device))
+            x = x + sinusoidal_embedding(pos, cfg.d_model)[None].to(dt)
+        return x
 
     def _lm_head(self, params, x):
         """Final norm and the lm_head product in f32 (exact products of the
@@ -147,50 +207,56 @@ class Model:
         return logits[..., :self.cfg.vocab_size]
 
     def _loss_mask(self, batch):
-        """Ones over ``batch["labels"]``: every position is a target.  The
-        reference's vision frontend masks its patch positions; the port
-        has no frontends (``_embed`` refuses them too)."""
+        """(B, S) f32 over ``batch["labels"]``: ones, or for the vision
+        frontend ones at the text positions (at or past ``num_patches``)
+        and zeros at the patches."""
+        lab = batch["labels"]
+        mask = torch.ones_like(lab, dtype=torch.float32)
         if self.cfg.frontend == "vision_patches":
-            raise ValueError("the port has no vision frontend: no loss mask "
-                             "for patch positions")
-        return torch.ones_like(batch["labels"], dtype=torch.float32)
+            text = torch.arange(lab.shape[1], device=lab.device) \
+                >= self.cfg.num_patches
+            mask = text[None, :].float() * mask
+        return mask
 
     def loss(self, params, batch):
-        """Mean next-token NLL of ``batch["tokens"]`` (B, S) against
-        ``batch["labels"]`` (B, S), a 0-d f32 tensor; differentiable in the
+        """Mean next-token NLL of the batch (keys by frontend, as
+        ``input_specs``) against ``batch["labels"]`` (B, S) under
+        ``_loss_mask``, a 0-d f32 tensor; differentiable in the
         parameters.  The head is ``params["lm_head"]`` itself (never the
         cached f32 copy of ``_head_f32``, made outside autograd), through
         ``lm_loss``."""
-        x = self._embed(params, batch["tokens"])
+        x = self._embed(params, batch, "train")
         x, _ = stack_apply(x, params, self.cfg, "train")
         x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
         return lm_loss(x, params["lm_head"], batch["labels"],
                        self._loss_mask(batch), self.cfg.vocab_size)
 
     def logits(self, params, batch):
-        """Full-sequence logits (B, S, V) f32 of ``batch["tokens"]`` (B, S);
-        one ``flash_attention`` launch per layer."""
-        x = self._embed(params, batch["tokens"])
+        """Full-sequence logits (B, S, V) f32 of the batch (keys by
+        frontend; labels not needed); one ``flash_attention`` launch per
+        attention layer."""
+        x = self._embed(params, batch, "train")
         x, _ = stack_apply(x, params, self.cfg, "train")
         return self._lm_head(params, x)
 
     def prefill(self, params, batch):
         """Prompt forward: returns (logits (B, V) f32 at the last position,
-        caches) for ``batch["tokens"]`` (B, S); caches as ``cache_specs(B,
-        S)``."""
-        x = self._embed(params, batch["tokens"])
+        caches) for the batch (keys by frontend) of S positions; caches as
+        ``cache_specs(B, S)``."""
+        x = self._embed(params, batch, "prefill")
         x, caches = stack_apply(x, params, self.cfg, "prefill")
         return self._lm_head(params, x[:, -1]), caches
 
     def decode_step(self, params, caches, tokens, index):
         """One token per sequence: tokens (B, 1) int at position ``index``
         (an int or a one-element tensor; the next write slot, below the
-        caches' length).  The caches are written IN PLACE and returned.
-        Returns (logits (B, V) f32, caches)."""
+        caches' length), for every frontend.  The caches are written IN
+        PLACE and returned.  Returns (logits (B, V) f32, caches)."""
         if not isinstance(index, torch.Tensor):
             index = torch.full((1,), int(index), dtype=torch.long,
                                device=tokens.device)
-        x = self._embed(params, tokens)
+        x = self._embed(params, {"tokens": tokens}, "decode",
+                        index.reshape(1))
         x, caches = stack_apply(x, params, self.cfg, "decode", caches=caches,
                                 index=index)
         return self._lm_head(params, x)[:, 0], caches
@@ -198,19 +264,36 @@ class Model:
     def cache_specs(self, B: int, S: int):
         """Caches of the full-sequence forward as ``meta`` tensors, per
         layer: "attn" k/v (B, S, KV, Dh); "mla" ckv (B, S, r) and kr (B, S,
-        rope).  Unit caches carry the leading num_units dim."""
+        rope), in the model dtype; the recurrent states in f32, whatever
+        S: "mamba" conv (B, dc-1, di) and ssm (B, di, ds); "mlstm" C (B, H,
+        dh, dh), n (B, H, dh), m (B, H); "slstm" c, n, h, m (B, H, dh).
+        Unit caches carry the leading num_units dim."""
         cfg = self.cfg
         dt = _dtype(cfg)
 
         def cache(mixer, *lead):
-            def t(*shape):
-                return torch.empty(lead + shape, dtype=dt, device="meta")
+            def t(*shape, dtype=dt):
+                return torch.empty(lead + shape, dtype=dtype, device="meta")
+            f32 = torch.float32
             if mixer == "attn":
                 KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
                 return {"k": t(B, S, KV, hd), "v": t(B, S, KV, hd)}
             if mixer == "mla":
                 return {"ckv": t(B, S, cfg.kv_lora_rank),
                         "kr": t(B, S, cfg.qk_rope_dim)}
+            if mixer == "mamba":
+                di = cfg.mamba_d_inner
+                return {"conv": t(B, cfg.mamba_d_conv - 1, di, dtype=f32),
+                        "ssm": t(B, di, cfg.mamba_d_state, dtype=f32)}
+            Hx = cfg.xlstm_num_heads
+            dh = cfg.d_model // Hx
+            if mixer == "mlstm":
+                return {"C": t(B, Hx, dh, dh, dtype=f32),
+                        "n": t(B, Hx, dh, dtype=f32),
+                        "m": t(B, Hx, dtype=f32)}
+            if mixer == "slstm":
+                return {name: t(B, Hx, dh, dtype=f32)
+                        for name in ("c", "n", "h", "m")}
             raise ValueError(f"no cache for mixer {mixer!r} in the port")
 
         return {"prefix": tuple(cache(m) for m, _ in cfg.prefix_pattern),
@@ -227,6 +310,33 @@ class Model:
 
         return {"prefix": tuple(zeros(c) for c in specs["prefix"]),
                 "units": {k: zeros(c) for k, c in specs["units"].items()}}
+
+    def input_specs(self, shape: Shape) -> Dict[str, Any]:
+        """``meta`` tensors standing in for every model input of a shape
+        cell, as the reference's ``input_specs``: "train" {"batch": the
+        frontend's keys with labels}, "prefill" {"batch": without labels},
+        "decode" {"caches": ``cache_specs(B, seq_len)``, "tokens" (B, 1),
+        "index" ()}."""
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        dt = _dtype(cfg)
+
+        def t(*dims, dtype=torch.int32):
+            return torch.empty(dims, dtype=dtype, device="meta")
+
+        if shape.kind == "decode":
+            return {"caches": self.cache_specs(B, S), "tokens": t(B, 1),
+                    "index": t()}
+        if cfg.frontend == "audio_frames":
+            batch = {"frames": t(B, S, cfg.d_model, dtype=dt)}
+        elif cfg.frontend == "vision_patches":
+            batch = {"patches": t(B, cfg.num_patches, cfg.d_model, dtype=dt),
+                     "tokens": t(B, S - cfg.num_patches)}
+        else:
+            batch = {"tokens": t(B, S)}
+        if shape.kind == "train":
+            batch["labels"] = t(B, S)
+        return {"batch": batch}
 
     # ------------------------------------------------------------------
     def supports_paged(self) -> bool:

@@ -1,5 +1,6 @@
-"""Layer assembly: attention + SwiGLU or MoE blocks, the prefix layers,
-then ``num_units`` repetitions of the unit pattern.  Unit parameters, caches
+"""Layer assembly: a mixer (attention, mamba or xLSTM) + SwiGLU or MoE
+blocks, the prefix layers, then ``num_units`` repetitions of the unit
+pattern.  Unit parameters, caches
 and page pools carry a leading ``num_units`` dim, as in the reference; a
 Python loop over units takes the place of ``lax.scan``.  In mode "train"
 with ``cfg.remat``, when a gradient is being taken, each unit runs under
@@ -7,9 +8,10 @@ with ``cfg.remat``, when a gradient is being taken, each unit runs under
 body): its activations are recomputed in the backward pass, so the flash
 forward runs once more per layer there.
 
-Full-sequence forward (``stack_apply``): "attn" (GQA) and "mla" mixers,
-"mlp", "moe" and "none" FFNs.  Paged serving (``stack_apply_paged``):
-"attn" mixers with any of those FFNs.
+Full-sequence forward (``stack_apply``): "attn" (GQA), "mla", "mamba",
+"mlstm" and "slstm" mixers, "mlp", "moe" and "none" FFNs; a mixer's decode
+writes its cache in place.  Paged serving (``stack_apply_paged``): "attn"
+mixers with any of those FFNs.
 
 Mode "verify" (speculative decoding) carries the hidden states as a list
 of slabs (S, 1, d) of window rows and runs every row-wise op (norms,
@@ -27,9 +29,12 @@ from repro_torch.models.attention import (gqa_apply, gqa_decode_paged,
                                          gqa_prefill_paged, gqa_verify_paged,
                                          mla_apply)
 from repro_torch.models.layers import mlp, rms_norm
+from repro_torch.models.mamba import mamba_apply
 from repro_torch.models.moe import moe_apply
+from repro_torch.models.xlstm import mlstm_apply, slstm_apply
 
-MIXERS = {"attn": gqa_apply, "mla": mla_apply}
+MIXERS = {"attn": gqa_apply, "mla": mla_apply, "mamba": mamba_apply,
+          "mlstm": mlstm_apply, "slstm": slstm_apply}
 FFNS = ("mlp", "moe", "none")
 
 

@@ -564,6 +564,59 @@ def test_reduced_loss_grads_on_card_match_cpu(cuda, arch):
         assert bool(a.abs().sum() > 0)
 
 
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "xlstm-1.3b",
+                                  "musicgen-medium", "pixtral-12b"])
+def test_reduced_recurrent_and_frontend_families_on_card_match_cpu(cuda,
+                                                                   arch):
+    """Reduced f32 jamba, xlstm, musicgen and pixtral (batches by
+    frontend): logits, prefill and two decode steps on the card within
+    1e-4 of the CPU's (the caches written in place on both), and
+    ``Model.loss`` with every gradient within 1e-5 of the CPU's, one flash
+    backward launch per attention layer."""
+    from repro_torch.configs.archs import reduced_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models.convert import tree_leaves, tree_map
+    from repro_torch.models.model import build_model
+    from _torch_batches import numpy_batch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced_config(arch)
+    m = build_model(cfg)
+    cpu = m.init(torch.Generator().manual_seed(0))
+    dev = tree_map(lambda t: t.to(cuda), cpu)
+    B, S = 2, 70
+    batch = {k: torch.from_numpy(v)
+             for k, v in numpy_batch(m, B, S, 1).items()}
+    labels = batch.pop("labels")
+    toks = torch.randint(0, cfg.vocab_size, (B, 2), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(2))
+    pre = {k: v[:, :-2] if k != "patches" else v for k, v in batch.items()}
+    outs = []
+    for params, d in ((cpu, "cpu"), (dev, cuda)):
+        got = [m.logits(params, {k: v.to(d) for k, v in batch.items()})]
+        _, caches = m.prefill(params, {k: v.to(d) for k, v in pre.items()})
+        grown = m.init_caches(B, S, d)
+        tree_map(lambda z, c: z[tuple(slice(0, n) for n in c.shape)]
+                 .copy_(c), grown, caches)
+        for i in range(2):
+            logits, _ = m.decode_step(params, grown, toks[:, i:i + 1].to(d),
+                                      S - 2 + i)
+            got.append(logits)
+        outs.append([t.cpu() for t in got + tree_leaves(grown)])
+    for a, b in zip(*outs):
+        assert (a - b).abs().max().item() <= 1e-4
+    batch["labels"] = labels
+    before = fa.launches["flash_attention_bwd"]
+    loss, grads = value_and_grad(m.loss, dev, {k: v.to(cuda)
+                                               for k, v in batch.items()})
+    n_attn = sum(mx == "attn" for mx, _ in cfg.unit_pattern) * cfg.num_units
+    assert fa.launches["flash_attention_bwd"] == before + n_attn
+    ref_loss, ref = value_and_grad(m.loss, cpu, batch)
+    assert abs(loss.item() - ref_loss.item()) <= 1e-5
+    for a, b in zip(tree_leaves(grads), tree_leaves(ref)):
+        assert (a.cpu() - b).abs().max().item() <= 1e-5
+
+
 _FLEET_SPEC = dict(rate=1.5, duration=6.0, seed=0, mix=(2, 1, 1),
                    prompt_cap=40, output_cap=12, slo_scale=20.0)
 

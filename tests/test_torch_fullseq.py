@@ -187,7 +187,18 @@ def test_decode_step_matches_paged_decode():
 @pytest.mark.parametrize("pattern", [(("mamba", "mlp"),),
                                      (("mlstm", "none"),)])
 def test_unported_layers_raise(pattern):
+    """Recurrent layers run in the full-sequence forward (since they were
+    ported) but have no paged state: the paged path refuses them, as the
+    reference's ``layer_apply_paged`` does."""
     cfg = dataclasses.replace(reduced_config("tinyllama-1.1b"),
                               unit_pattern=pattern)
+    m = build_model(cfg)
+    params = m.init(torch.Generator().manual_seed(0))
+    toks = torch.zeros((1, 4), dtype=torch.int32)
+    assert tuple(m.logits(params, {"tokens": toks}).shape) == (
+        1, 4, cfg.vocab_size)
+    assert not m.supports_paged()
+    pages = m.init_paged_caches(3, 4, "cpu")
     with pytest.raises(ValueError):
-        build_model(cfg).init(torch.Generator().manual_seed(0))
+        m.prefill_paged(params, pages, toks, 0,
+                        torch.zeros(2, dtype=torch.int32), 4)

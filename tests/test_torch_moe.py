@@ -9,8 +9,9 @@ weights carried across by ``params_from_numpy`` (logits 1e-4, as
 kimi with the streams of ``PagedJaxBackend``, a port of
 ``tests/test_models_smoke.py`` over every reduced architecture (the
 forward's logits, then ``Model.loss`` and every gradient against
-``jax.value_and_grad``; also at minitron's head dim 128 and deepseek's MLA
-qk 128 + 64, v 128), and the flash plain version at deepseek's head dims (192, 128) against
+``jax.value_and_grad``, batches built by frontend; also at minitron's head
+dim 128 and deepseek's MLA qk 128 + 64, v 128), paged serving refused for
+the recurrent and frontend families, and the flash plain version at deepseek's head dims (192, 128) against
 the Pallas kernel in interpret mode."""
 
 import dataclasses
@@ -50,16 +51,17 @@ from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.serving.engine import EngineConfig, ServeEngine  # noqa: E402
 from repro_torch.serving.request import Request, SLOSpec  # noqa: E402
 from repro_torch.serving.torch_backend import PagedTorchBackend  # noqa: E402
+from _torch_batches import numpy_batch  # noqa: E402
 
 KIMI, DEEPSEEK = "kimi-k2-1t-a32b", "deepseek-v2-lite-16b"
 MOE_ATOL = 1e-5
 LOGITS_ATOL = 1e-4
 POOL_ATOL = 1e-6
-# the architectures the port runs, and those it refuses (mamba, xLSTM, the
-# audio and vision frontends)
-RUNS = [KIMI, DEEPSEEK, "tinyllama-1.1b", "minicpm3-4b", "yi-34b",
-        "minitron-4b"]
+# the architectures the port runs, and those whose paged serving it refuses
+# as the reference does (mamba, xLSTM, the audio and vision frontends)
 REFUSED = ["jamba-v0.1-52b", "xlstm-1.3b", "musicgen-medium", "pixtral-12b"]
+RUNS = [KIMI, DEEPSEEK, "tinyllama-1.1b", "minicpm3-4b", "yi-34b",
+        "minitron-4b"] + REFUSED
 B, S = 2, 12
 
 
@@ -418,7 +420,8 @@ def test_kimi_spec_streams_equal_plain_decode():
 # every reduced architecture (a port of tests/test_models_smoke.py's forward)
 # ---------------------------------------------------------------------------
 def test_arch_lists_partition_the_registry():
-    assert sorted(RUNS + REFUSED) == sorted(list_archs())
+    assert sorted(RUNS) == sorted(list_archs())
+    assert set(REFUSED) <= set(RUNS)
 
 
 @pytest.mark.parametrize("arch", RUNS)
@@ -427,34 +430,31 @@ def test_smoke_forward_matches_reference(arch):
     jm = j_build(j_reduced(arch))
     tm = build_model(cfg)
     tp = params_from_numpy(_jax_weights(arch), "cpu")
-    toks = np.random.default_rng(0).integers(0, cfg.vocab_size,
-                                             (2, 16)).astype(np.int32)
-    lt = tm.logits(tp, {"tokens": torch.from_numpy(toks)})
+    batch = numpy_batch(tm, 2, 16, 0)
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    lt = tm.logits(tp, tb)
     assert tuple(lt.shape) == (2, 16, cfg.vocab_size)
     assert bool(torch.isfinite(lt).all())
-    jt = jnp.asarray(toks)
     lj = jm.logits(jax.tree.map(jnp.asarray, _jax_weights(arch)),
-                   {"tokens": jt, "labels": jt})
+                   jax.tree.map(jnp.asarray, batch))
     np.testing.assert_allclose(lt.numpy(), np.asarray(lj), rtol=0,
                                atol=LOGITS_ATOL)
     # the port's own init of the same tree runs too
     own = tm.init(torch.Generator().manual_seed(0))
-    assert bool(torch.isfinite(
-        tm.logits(own, {"tokens": torch.from_numpy(toks)})).all())
+    assert bool(torch.isfinite(tm.logits(own, tb)).all())
 
 
 @pytest.mark.parametrize("arch", RUNS)
 def test_smoke_loss_and_grads_match_reference(arch):
     """The train half of ``tests/test_models_smoke.py``: ``Model.loss`` and
     every gradient leaf against ``jax.value_and_grad(model.loss)`` on the
-    same weights and batch; loss within 1e-5, gradients within 1e-6 (f32
-    reductions in other orders: they measure at most 4.8e-7 and 5.4e-8,
-    for gradients up to 0.12), all finite, the gradient norm above 0."""
+    same weights and batch (by frontend); loss within 1e-5, gradients
+    within 1e-6 (f32 reductions in other orders: they measure at most
+    9.5e-7 (musicgen) and 5.4e-8, for gradients up to 0.2), all finite,
+    the gradient norm above 0."""
     cfg = reduced_config(arch)
     jm, tm = j_build(j_reduced(arch)), build_model(cfg)
-    rng = np.random.default_rng(1)
-    batch = {k: rng.integers(0, cfg.vocab_size, (2, 16)).astype(np.int32)
-             for k in ("tokens", "labels")}
+    batch = numpy_batch(tm, 2, 16, 1)
     jl, jg = jax.value_and_grad(jm.loss)(
         jax.tree.map(jnp.asarray, _jax_weights(arch)),
         jax.tree.map(jnp.asarray, batch))
@@ -507,13 +507,14 @@ def test_loss_and_grads_at_full_head_dims_match_reference(arch):
 
 @pytest.mark.parametrize("arch", REFUSED)
 def test_unported_archs_raise(arch):
-    """mamba and xLSTM mixers are refused at init, the audio and vision
-    frontends at the forward; neither is served paged."""
+    """Paged serving stays refused for mamba and xLSTM mixers and the
+    audio and vision frontends, as in the reference (``supports_paged``
+    false in both packages, ``PagedTorchBackend`` raises as
+    ``PagedJaxBackend`` does); their full-sequence forward runs (the tests
+    above)."""
     tm = build_model(reduced_config(arch))
     assert not tm.supports_paged()
-    with pytest.raises(ValueError):
-        params = tm.init(torch.Generator().manual_seed(0))
-        tm.logits(params, {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
+    assert not j_build(j_reduced(arch)).supports_paged()
     with pytest.raises(ValueError):
         PagedTorchBackend(arch=arch, device="cpu")
 

@@ -32,6 +32,7 @@ VERBATIM = [
     "configs/yi_34b.py", "configs/minitron_4b.py",
     "configs/jamba_v0p1_52b.py", "configs/xlstm_1p3b.py",
     "configs/musicgen_medium.py", "configs/pixtral_12b.py", "configs/archs.py",
+    "configs/shapes.py", "configs/__init__.py",
     "cluster/__init__.py", "cluster/engine.py", "cluster/router.py",
     "cluster/autoscaler.py", "launch/dashboard.py",
     "training/fault_tolerance.py",
@@ -63,6 +64,9 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
             "repro_torch.launch.serve",
             "repro_torch.models.attention",
             "repro_torch.models.moe",
+            "repro_torch.models.mamba",
+            "repro_torch.models.xlstm",
+            "repro_torch.configs.shapes",
             "repro_torch.examples",
             "repro_torch.examples.quickstart",
             "repro_torch.examples.serve_cluster",
