@@ -29,10 +29,20 @@ slo-margin; merged streams equal to the colocated run's), holds a
 migration's export/import bitwise (live and swapped out, bf16 pages as
 int16 patterns on the host) beside ``migrate_time``'s price for it,
 checks the paged kernels' ticket counters are zero after the fleets,
-serves the MoE model kimi-k2 at full width (its depth cut to one layer)
-through the same backend and workload (gmg fused / unfused / four decode
-steps, vllm spec 0 / 4 / replayed drafts, equal streams within each
-scheduler; batch invariance, verify logits bitwise decode logits, the
+serves tensor-parallel (the ranks of one backend sharing the card, their
+collectives through shared device buffers): the paged kernels at the
+ranks' local heads, full-width tinyllama-1.1b in bf16 at tp=2 and tp=4
+(gmg fused / four decode steps / unfused and vllm spec 0 / 4, equal
+digests within each; the streams' first differences from tp=1's with
+tp=1's top-2 logit gaps; the logits on identical pools; what sharing the
+card costs a decode forward), a 1 prefill + 1 decode fleet at tp=2 (its
+merged digest equal to the colocated tp=2 run's), full width cut to 2
+layers in f32 at tp=1, 2 and 4 (equal digests), every rank's token hash
+and ticket counters checked, serves the MoE model kimi-k2 at full width
+(its depth cut to one layer) through the same backend and workload (gmg
+fused / unfused / four decode steps, vllm spec 0 / 4 / replayed drafts,
+equal streams within each scheduler; batch invariance, verify logits
+bitwise decode logits, the
 decode forward's profile with the MoE's share, the memory a forward
 takes beyond the resident tensors, the phase's peak memory; the paged
 kernels are also checked at its heads, H=64, KV=8, D=128), and times the
@@ -187,6 +197,8 @@ MIXER_RTOL = 1e-4
 # activations
 KIMI = "kimi-k2-1t-a32b"
 KIMI_LAYERS = 1
+# depth of the f32 tensor-parallel runs (tp=1, 2 and 4 give equal streams)
+TP_F32_LAYERS = 2
 # the flash kernel's cases: (B, S, H, KV, Dk, Dv, dtype, causal)
 FLASH_SWEEP = [(B, S, H, KV, D, D, dt, True)          # the reference sweep
                for B, S, H, KV, D in ((2, 128, 4, 4, 64), (1, 256, 8, 2, 64),
@@ -804,9 +816,9 @@ def serve(torch, pa, fused=True, decode_steps=1, scheduler="gmg", spec=0,
         be.drafter = drafter if drafter is not None else NgramDrafter()
     obs = MetricsRegistry()
     engine = EngineConfig(max_batch=8, prefill_budget=32,
-                          decode_steps=decode_steps, spec_depth_max=spec)
-    for k in pa.launches:
-        pa.launches[k] = 0
+                          decode_steps=decode_steps, spec_depth_max=spec,
+                          tp=be.tp)
+    zero_launches(pa, [be])
     t0 = time.perf_counter()
     summ = run(ExperimentSpec(
         scheduler=scheduler, workload=WorkloadSpec(**WORKLOAD),
@@ -814,13 +826,14 @@ def serve(torch, pa, fused=True, decode_steps=1, scheduler="gmg", spec=0,
         telemetry=TelemetrySpec(obs=obs), prompts=prompts))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = dict(pa.launches)
+    counts = paged_launches(pa, [be])
     digest = _stream_digest(be)
     tokens = [t for toks in be.generated.values() for t in toks]
     how = ((" (motif prompts)" if prompts else "")
            + (f" ({type(drafter).__name__})" if drafter else ""))
     print(f"  {scheduler} fused={fused} decode_steps={decode_steps} "
-          f"spec={spec} temperature={temperature}{how}: finished "
+          f"spec={spec} temperature={temperature}{how}"
+          f"{f' tp={be.tp}' if be.tp > 1 else ''}: finished "
           f"{summ.n_finished}, goodput {summ.goodput_frac:.3f}, "
           f"{summ.throughput_tok_s:.1f} tok/s (engine clock), "
           f"{len(tokens)} tokens in {wall:.2f} s wall, launches {counts}, "
@@ -838,12 +851,36 @@ def serve(torch, pa, fused=True, decode_steps=1, scheduler="gmg", spec=0,
     return be, summ, counts, digest
 
 
-def fleet_run(torch, pa, cluster):
+def zero_launches(pa, backends) -> None:
+    """Set the paged kernels' launch counts to 0 in this process and in
+    every worker rank of ``backends``."""
+    for k in pa.launches:
+        pa.launches[k] = 0
+    for be in backends:
+        if be.tp > 1:
+            be.rank_stats(reset=True)
+
+
+def paged_launches(pa, backends) -> dict:
+    """The paged kernels' launches since ``zero_launches``: this process's
+    (every backend's rank 0) plus each worker rank's."""
+    counts = dict(pa.launches)
+    for be in backends:
+        if be.tp > 1:
+            for st in be.rank_stats()[1:]:
+                for k in counts:
+                    counts[k] += st["launches"][k]
+    return counts
+
+
+def fleet_run(torch, pa, cluster, tp=1):
     """Full-width tinyllama-1.1b on a fleet through ``run_cluster`` under
-    gmg: each replica builds its own backend on the card (``SERVE_KW``)
-    and the replicas step in turn on the current stream.  Kernel launch
-    counts are zeroed just before the run and read just after it.  Prints
-    one line for the fleet and one per replica."""
+    gmg: each replica builds its own backend on the card (``SERVE_KW``;
+    with ``tp`` > 1 its ranks share the card) and the replicas step in turn
+    on the current stream.  Kernel launch counts are zeroed just before the
+    run and read just after it (a replica's worker ranks start at 0).
+    Prints one line for the fleet and one per replica.  Returns (fleet
+    summary, the replicas' backends, merged digest, launches)."""
     from repro_torch.examples.quickstart import _stream_digest
     from repro_torch.obs import MetricsRegistry
     from repro_torch.serving.engine import EngineConfig
@@ -852,24 +889,27 @@ def fleet_run(torch, pa, cluster):
     from repro_torch.serving.workload import WorkloadSpec
 
     sink, obs = [], MetricsRegistry()
-    for k in pa.launches:
-        pa.launches[k] = 0
+    zero_launches(pa, [])
+    kwargs = dict(SERVE_KW)
+    if tp > 1:
+        kwargs.update(tp=tp, devices=["cuda:0"] * tp)
     t0 = time.perf_counter()
     fs = run_cluster(ExperimentSpec(
         scheduler="gmg", workload=WorkloadSpec(**WORKLOAD),
-        engine=EngineConfig(max_batch=8, prefill_budget=32),
-        backend=BackendSpec(kind="torch", kwargs=dict(SERVE_KW), sink=sink),
+        engine=EngineConfig(max_batch=8, prefill_budget=32, tp=tp),
+        backend=BackendSpec(kind="torch", kwargs=kwargs, sink=sink),
         cluster=cluster, telemetry=TelemetrySpec(obs=obs)))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = dict(pa.launches)
+    counts = paged_launches(pa, sink)
     digest = _stream_digest(sink)
     check(len(sink) == len(fs.per_replica) and all(
         be.device.type == "cuda" and be.cfg.d_model == 2048
         and be.cfg.num_layers == 22 and be.cfg.dtype == "bfloat16"
         for be in sink), "every replica is full-width tinyllama on the card")
     label = cluster.router + (f" {'+'.join(cluster.roles)}" if cluster.roles
-                              else f" x{cluster.n_replicas}")
+                              else f" x{cluster.n_replicas}") \
+        + (f" tp={tp}" if tp > 1 else "")
     print(f"  {label}: finished {fs.fleet.n_finished}, goodput "
           f"{fs.goodput_frac:.3f}, migrated {fs.fleet.migrated_in}, "
           f"{fs.fleet.throughput_tok_s:.1f} tok/s (engine clock), makespan "
@@ -887,7 +927,7 @@ def fleet_run(torch, pa, cluster):
           f"{label}: no goodput")
     check(counts["fused_decode_attention"] > 0,
           f"{label}: fused_decode_attention never launched")
-    return fs, sink, digest
+    return fs, sink, digest, counts
 
 
 def migration_round_trip(torch, a, b) -> None:
@@ -960,13 +1000,13 @@ def fleet(torch, pa, colocated: str, card: str) -> None:
     t0 = time.perf_counter()
     print("fleet: tinyllama-1.1b replicas (full width, bf16, random weights "
           "from seed 0), gmg:")
-    di, sink, dig_d = fleet_run(torch, pa, ClusterSpec(
+    di, sink, dig_d, _ = fleet_run(torch, pa, ClusterSpec(
         router="disagg", roles=["prefill", "decode"]))
     del sink
     torch.cuda.empty_cache()
     check(di.fleet.migrated_in > 0, "the disaggregated fleet migrated no "
           "request (the disagg router priced every migration out)")
-    sm, sink, dig_s = fleet_run(torch, pa, ClusterSpec(
+    sm, sink, dig_s, _ = fleet_run(torch, pa, ClusterSpec(
         router="slo-margin", n_replicas=2))
     check(min(sm.routed.values()) > 0,
           f"slo-margin routed to one replica only: {sm.routed}")
@@ -985,6 +1025,318 @@ def fleet(torch, pa, colocated: str, card: str) -> None:
           f"phase {time.perf_counter() - t0:.2f} s wall ({card})")
 
 
+# ---------------------------------------------------------------------------
+# tensor parallelism: the ranks of one backend share the card
+# ---------------------------------------------------------------------------
+def tp_kernels(torch, pa) -> dict:
+    """The paged kernels at tinyllama's local heads under serving TP (H=16,
+    KV=2 at tp=2; H=8, KV=1 at tp=4; D=64, bf16): the decode and attend
+    kernels at the serving call's shape (8 live of 64 lanes) and the
+    verify kernel at W=5, against their plain versions.  Returns each
+    kernel's largest error."""
+    errs = dict.fromkeys(pa.launches, 0.0)
+    live = [1, 15, 16, 17, 32, 33, 48, 52]
+    for tp, H, KV in ((2, 16, 2), (4, 8, 1)):
+        label = f"H={H} KV={KV} D=64 (tinyllama's heads on a rank at tp={tp})"
+        c = serving_case(torch, 64, live, seed=300 + tp, H=H, KV=KV, D=64)
+        e = check_kernels(torch, pa, c, 2e-2, f"bf16 B=64 (8 live, ctx<=52)"
+                          f" n_max=16 {label}", live=8)
+        c = verify_case(torch, 8, 5, H, KV, 64, 16, live,
+                        [5, 2, 5, 1, 4, 5, 3, 5], torch.bfloat16,
+                        seed=310 + tp, lanes=64)
+        e["fused_verify_attention"] = check_verify(
+            torch, pa, c, 2e-2, f"bf16 64 lanes (8 live, ctx<=56) W=5 {label}")
+        errs.update({k: max(errs[k], v) for k, v in e.items()})
+    return errs
+
+
+def tp_backend(torch, tp, **kw):
+    """A full-width tinyllama-1.1b backend (``SERVE_KW``) of ``tp`` ranks
+    sharing cuda:0 (tp=1: one rank)."""
+    from repro_torch.serving.torch_backend import PagedTorchBackend
+
+    if tp > 1:
+        kw.update(tp=tp, devices=["cuda:0"] * tp)
+    args = dict(SERVE_KW, **kw)
+    if "config" in kw:
+        args = {k: v for k, v in args.items() if k not in ("arch", "reduced")}
+    return PagedTorchBackend(**args)
+
+
+def rank_check(be, label) -> list:
+    """The ranks' sampled-token hashes agree and every rank's ticket
+    counters are zero; prints and returns each rank's stats."""
+    be.check_ranks()
+    stats = be.rank_stats()
+    check(len({st["digest"] for st in stats}) == 1,
+          f"{label}: the ranks' token hashes differ")
+    check(all(st["tickets"] == 0 for st in stats),
+          f"{label}: a rank's ticket counters are not zero")
+    print(f"    {label}: ranks' token hashes agree "
+          f"({stats[0]['digest']}), ticket counters zero on every rank, "
+          f"data group {stats[0]['data']}")
+    return stats
+
+
+def tp_close(be, label) -> None:
+    """Close ``be`` (its ranks' hashes checked again); every worker rank
+    must have exited by itself with code 0."""
+    be.close()
+    if be.tp > 1:
+        check(be.worker_exitcodes == [0] * (be.tp - 1),
+              f"{label}: worker exit codes {be.worker_exitcodes}")
+        print(f"    {label}: closed, worker exit codes "
+              f"{be.worker_exitcodes}")
+
+
+def serve_lanes(be, n_live, ctx):
+    """Host inputs of a decode forward at ``ROWS`` lanes: ``n_live`` live
+    lanes at position ``ctx - 1`` on tables of their own, the rest padding
+    lanes on the all-scrap table."""
+    import numpy as np
+    from repro_torch.serving.torch_backend import ROWS
+
+    per = -(-(ctx + 1) // be.page)
+    tok = np.zeros((ROWS, 1), np.int32)
+    pos = np.zeros(ROWS, np.int32)
+    tabs = np.full((ROWS, be.n_max), be.scrap, np.int32)
+    pos[:n_live] = ctx - 1
+    tabs[:n_live, :per] = np.arange(n_live * per).reshape(n_live, per)
+    return tok, pos, tabs
+
+
+def tp_cost(torch, be, b1, card) -> None:
+    """What sharing one card costs the ranks of a tp=2 decode forward (64
+    lanes, 8 live at context 48): its wall time and rank 0's device-busy
+    time beside tp=1's, the collectives it makes on each rank (2 per layer
+    + 1 gather), and each rank's host time inside them over ``reps`` more
+    forwards (its device synchronised, the wait for the other rank and the
+    sum included).  Ranks sharing one card: not a measure of TP speed."""
+    reps, warmup = 10, 3
+    inputs = serve_lanes(be, 8, 48)
+    w1, busy1, _, _ = profiled(torch, lambda: b1.decode_logits(*inputs),
+                               reps=reps, warmup=warmup)
+    wall, busy, n, top = profiled(torch, lambda: be.decode_logits(*inputs),
+                                  reps=reps, warmup=warmup)
+    be.rank_stats(reset=True)
+    for _ in range(reps):
+        be.decode_logits(*inputs)
+    torch.cuda.synchronize()
+    stats = be.rank_stats(reset=True)
+    calls = [st["collectives"] / reps for st in stats]
+    want = 2 * be.cfg.num_layers + 1
+    check(calls == [want] * be.tp, f"tp=2 decode forward: {calls} "
+          f"collectives per rank, want {want}")
+    print(f"  cost of ranks sharing one card (tp=2 decode forward, 64 lanes, "
+          f"8 live at ctx 48; {card}): wall {wall:.3f} ms (tp=1 {w1:.3f} ms),"
+          f" rank 0's device busy {busy:.3f} ms (tp=1 {busy1:.3f} ms), idle "
+          f"share {1 - busy / wall:.3f} of rank 0's wall; {want} "
+          f"collectives per forward on each rank, host ms inside them per "
+          f"forward: " + ", ".join(
+              f"rank {st['rank']} {st['collective_s'] / reps * 1e3:.3f}"
+              for st in stats)
+          + " (ranks sharing one card: not a TP speed)")
+    for ms, count, key in top[:6]:
+        print(f"    {ms:.4f} ms x{count} {key[:90]}")
+
+
+def tp_logits(torch, b1, b2) -> None:
+    """Full-depth bf16, tp=2 against tp=1 on identical pools: 8 prompts
+    prefilled at tp=1, their pages imported into the tp=2 pool (each rank
+    its heads), one decode forward on each; prints the largest logit
+    difference on the live lanes."""
+    import numpy as np
+    from repro_torch.serving.request import Request, SLOSpec
+
+    tok, pos, tabs = serve_lanes(b1, 8, 40)
+    for be in (b1, b2):
+        be.reset_run_state()
+    for i in range(8):
+        r = Request(rid=10**6 + i, app="chatbot", arrival=0.0, prompt_len=40,
+                    true_output_len=12, slo=SLOSpec("throughput", ttlt=60.0))
+        table = [int(t) for t in tabs[i, :3]]
+        b1.begin_step()
+        b1.prefill_chunk(r, 0, r.prompt_len, table)
+        b1.step_time(r.prompt_len, [])
+        tok[i, 0] = b1.prompt_ids(r)[-1]
+        b2.kv_import_pages(r.rid, b1.kv_export_pages(r.rid, table), table)
+    l1 = b1.decode_logits(tok, pos, tabs)[:8]
+    l2 = b2.decode_logits(tok, pos, tabs)[:8]
+    d = (l1 - l2).abs()
+    same = int((l1.argmax(-1) == l2.argmax(-1)).sum())
+    print(f"  bf16 full depth, tp=2 vs tp=1, one decode forward on identical "
+          f"pools (8 lanes at ctx 40): max|dlogit| {d.max().item():.4e}, "
+          f"mean {d.mean().item():.4e}, largest |logit| "
+          f"{l1.abs().max().item():.3f}; argmax equal on {same} of 8 lanes")
+    for be in (b1, b2):
+        be.reset_run_state()
+    check(bool(np.isfinite(d.cpu().numpy()).all()), "tp=2 logits finite")
+
+
+def tp_first_differences(torch, b1, streams1, streams2, label) -> None:
+    """For each stream of the workload that ``streams2`` (a tp > 1 run)
+    emits differently from ``streams1`` (the tp=1 run): the first token
+    that differs and tp=1's top-2 logit gap at that step.  The gap comes
+    from a replay at tp=1: the single request's prompt prefilled, then its
+    tp=1 tokens decoded one step at a time, which batch invariance makes
+    bitwise the run's steps (checked: the replay's argmax is tp=1's
+    token).  DAG stages' prompts are made by the engine: only their
+    first difference is printed."""
+    import numpy as np
+    from repro_torch.serving.workload import WorkloadGen, WorkloadSpec
+
+    singles = {r.rid: r for r in WorkloadGen(WorkloadSpec(**WORKLOAD))
+               .generate()[0]}
+    differ = sorted(rid for rid in streams1
+                    if streams1[rid] != streams2.get(rid))
+    print(f"  {label}: {len(differ)} of {len(streams1)} streams differ from "
+          f"tp=1's")
+    b1.reset_run_state()
+    for rid in differ:
+        s1, s2 = streams1[rid], streams2.get(rid, [])
+        i = next(j for j in range(len(s1)) if j >= len(s2) or s1[j] != s2[j])
+        r = singles.get(rid)
+        if r is None:
+            print(f"    r{rid} (a DAG stage): first difference at token {i}")
+            continue
+        L = r.prompt_len
+        table = list(range(-(-(L + i + 1) // b1.page)))
+        b1.begin_step()
+        b1.prefill_chunk(r, 0, L, table)
+        b1.step_time(L, [])
+        prompt = b1.prompt_ids(r)
+        for j in range(i + 1):
+            tok, pos, tabs = serve_lanes(b1, 1, L + j)
+            tok[0, 0] = prompt[-1] if j == 0 else s1[j - 1]
+            tabs[0, :len(table)] = table
+            logits = b1.decode_logits(tok, pos, tabs)[0]
+        top2 = logits.topk(2)
+        v, ix = top2.values.tolist(), top2.indices.tolist()
+        print(f"    r{rid}: first difference at token {i} of {len(s1)}: tp=1 "
+              f"{s1[i]}, tp>1 {s2[i] if i < len(s2) else None}; tp=1's "
+              f"top-2 gap there {v[0] - v[1]:.4e} ({ix[0]} over {ix[1]})")
+        check(ix[0] == s1[i], f"r{rid}: the tp=1 replay's argmax {ix[0]} is "
+              f"not the run's token {s1[i]}")
+        b1.kv_release(r.rid)
+    b1.reset_run_state()
+
+
+def tp_phase(torch, pa, card, streams1) -> tuple:
+    """Serving tensor parallelism, its ranks sharing cuda:0 (the data group
+    over shared device buffers): the paged kernels at the ranks' local
+    heads; full-width tinyllama-1.1b in bf16 at tp=2 and tp=4 (gmg fused
+    n=1, fused n=4, unfused; vllm with motif prompts at spec 0 and spec 4:
+    equal digests within each scheduler and degree), the tp=2 streams'
+    first differences from tp=1's (``streams1``) with tp=1's top-2 gaps,
+    the logits on identical pools, the cost of sharing the card; a 1
+    prefill + 1 decode fleet at tp=2 (merged digest equal to the tp=2
+    colocated run's); full width cut to 2 layers in f32 at tp=1, 2 and 4
+    (equal digests).  Every run checks the ranks' hashes and ticket
+    counters.  Returns (each kernel's largest error at the local heads, the
+    paged kernels' launches summed over the phase's runs and ranks)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.serving.run import ClusterSpec
+    from repro_torch.serving.torch_backend import ROWS
+
+    t0 = time.perf_counter()
+    print("tensor parallelism, the ranks sharing one card (cuda:0):")
+    errs = tp_kernels(torch, pa)
+    total = dict.fromkeys(pa.launches, 0)
+
+    def add(counts):
+        for k in total:
+            total[k] += counts[k]
+
+    b1 = tp_backend(torch, 1)
+    gmg = {}
+    for tp in (2, 4):
+        t1 = time.perf_counter()
+        be = tp_backend(torch, tp)
+        print(f"  tp={tp}: plan {be.plan}, {be.num_blocks} pages in the "
+              f"engine's pool, data group {be.data.kind}; built in "
+              f"{time.perf_counter() - t1:.1f} s")
+        digs = {}
+        for name, kw in (("gmg fused n=1", dict()),
+                         ("gmg fused n=4", dict(decode_steps=4)),
+                         ("gmg unfused n=1", dict(fused=False)),
+                         ("vllm spec 0", dict(scheduler="vllm",
+                                              prompts=motif_prompts)),
+                         ("vllm spec 4", dict(scheduler="vllm", spec=4,
+                                              prompts=motif_prompts))):
+            _, summ, counts, digs[name] = serve(torch, pa, be=be, **kw)
+            add(counts)
+            kernel = ("paged_attention" if name.startswith("gmg unfused")
+                      else "fused_decode_attention")
+            check(counts[kernel] > 0, f"tp={tp} {name}: {kernel} never "
+                  "launched")
+            if "spec 4" in name:
+                check(summ.spec_proposed > 0 and
+                      counts["fused_verify_attention"] > 0,
+                      f"tp={tp} {name}: no verify forward")
+            if name == "gmg fused n=1":
+                gmg[tp] = {r: list(t) for r, t in be.generated.items()}
+            stats = rank_check(be, f"tp={tp} {name}")
+            print(f"    launches per rank: " + ", ".join(
+                f"rank {st['rank']} {st['launches']['fused_decode_attention']}"
+                f" decode / {st['launches']['paged_attention']} attend / "
+                f"{st['launches']['fused_verify_attention']} verify"
+                for st in stats))
+        print(f"  tp={tp} digests: " + ", ".join(f"{k} {v}"
+                                                 for k, v in digs.items()))
+        check(digs["gmg fused n=4"] == digs["gmg fused n=1"]
+              == digs["gmg unfused n=1"], f"tp={tp}: gmg digests differ")
+        check(digs["vllm spec 4"] == digs["vllm spec 0"],
+              f"tp={tp}: spec 4 changed the vllm streams")
+        tp_first_differences(torch, b1, streams1, gmg[tp],
+                             f"tp={tp} gmg fused n=1 vs tp=1")
+        if tp == 2:
+            check(batch_invariance(torch, be, ROWS, ("fixed",))["fixed"],
+                  "tp=2: results depend on the batch grouping or the "
+                  "prefill chunking")
+            tp_logits(torch, b1, be)
+            tp_cost(torch, be, b1, card)
+            gmg_digest = digs["gmg fused n=1"]
+        tp_close(be, f"tp={tp}")
+        del be
+        torch.cuda.empty_cache()
+    b1.close()
+    del b1
+    torch.cuda.empty_cache()
+
+    fs, sink, dig, counts = fleet_run(torch, pa, ClusterSpec(
+        router="disagg", roles=["prefill", "decode"]), tp=2)
+    add(counts)
+    check(fs.fleet.migrated_in > 0, "the tp=2 fleet migrated no request")
+    for i, be in enumerate(sink):
+        rank_check(be, f"tp=2 fleet replica {i}")
+        tp_close(be, f"tp=2 fleet replica {i}")
+    del sink
+    torch.cuda.empty_cache()
+    print(f"  tp=2 digests: disagg fleet {dig}, colocated gmg {gmg_digest}")
+    check(dig == gmg_digest, "the tp=2 disaggregated fleet changed the "
+          "token streams")
+
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b"), dtype="float32",
+                              num_layers=TP_F32_LAYERS)
+    f32 = {}
+    for tp in (1, 2, 4):
+        be = tp_backend(torch, tp, config=cfg)
+        _, _, counts, f32[tp] = serve(torch, pa, be=be, decode_steps=4)
+        add(counts)
+        if tp > 1:
+            rank_check(be, f"f32 tp={tp}")
+        tp_close(be, f"f32 tp={tp}")
+        del be
+        torch.cuda.empty_cache()
+    print(f"  f32, full width cut to {TP_F32_LAYERS} layers, gmg fused n=4: "
+          f"digests tp=1 {f32[1]}, tp=2 {f32[2]}, tp=4 {f32[4]}")
+    check(f32[2] == f32[1] and f32[4] == f32[1],
+          "f32 tp=2 / tp=4 streams differ from tp=1's")
+    print(f"  tensor-parallel phase: {time.perf_counter() - t0:.1f} s wall, "
+          f"paged launches over its runs and ranks {total} ({card})")
+    return errs, total
+
+
 def _pow2(n: int, lo: int) -> int:
     b = lo
     while b < n:
@@ -992,56 +1344,66 @@ def _pow2(n: int, lo: int) -> int:
     return b
 
 
-def batch_invariance(torch, be, rows) -> dict:
+def batch_invariance(torch, be, rows,
+                     names=("fixed", "power-of-two")) -> dict:
     """Whether full-width results are bitwise independent of how the
     engine groups and chunks work, under two padding policies: the
     backend's (``rows`` lanes per decode call, ``rows``-token prefill
-    calls) and the reference's power-of-two widths.  Eight lanes at
-    contexts 5-52 are decoded in groups of 1, 2, 4 and 8 lanes per call,
-    each group padded to the policy's width, and each lane's logits held
-    against the groups-of-8 run; one 52-token prompt is prefilled in three
-    chunkings and its KV compared.  Prints both; returns {policy: all
-    bitwise equal}."""
+    calls) and the reference's power-of-two widths (``names`` picks
+    them).  Eight lanes at contexts 5-52 are decoded in groups of 1, 2, 4
+    and 8 lanes per call, each group padded to the policy's width, and each
+    lane's logits held against the groups-of-8 run; one 52-token prompt is
+    prefilled in three chunkings and its KV compared.  The calls go
+    through the backend (``on_ranks``, ``decode_logits``,
+    ``kv_export_pages``), so they run on every rank under tensor
+    parallelism.  Prints each policy; returns {policy: all bitwise
+    equal}."""
+    import numpy as np
+    from repro_torch.models.convert import tree_leaves
+
     g = torch.Generator(device="cuda").manual_seed(3)
     ctxs = [5, 16, 17, 33, 40, 48, 49, 52]
     per = -(-max(ctxs) // be.page)            # pages per lane
-    dev = "cuda"
     policies = {"fixed": (lambda n: rows, lambda n: rows),
                 "power-of-two": (lambda n: _pow2(n, 1),
                                  lambda n: _pow2(n, 8))}
 
     def ints(*shape):
         return torch.randint(0, be.cfg.vocab_size, shape, generator=g,
-                             device=dev, dtype=torch.int32)
+                             device="cuda", dtype=torch.int32).cpu().numpy()
 
     def table(first):
-        t = torch.full((be.n_max,), be.scrap, dtype=torch.int32, device=dev)
-        t[:per] = torch.arange(first, first + per, dtype=torch.int32,
-                               device=dev)
+        t = np.full(be.n_max, be.scrap, np.int32)
+        t[:per] = np.arange(first, first + per)
         return t
 
     def prefill(tab, prompt, chunks, width):
-        start = 0
+        calls, start = [], 0
         for n in chunks:
-            toks = torch.zeros((1, width(n)), dtype=torch.int32, device=dev)
-            toks[0, :n] = prompt[start:start + n]
-            be.pages = be.model.prefill_paged(be.params, be.pages, toks,
-                                              start, tab, n)
+            toks = np.zeros(width(n), np.int32)
+            toks[:n] = prompt[start:start + n]
+            calls.append((width(n), toks, start, tab, n))
             start += n
+        be.on_ranks("_prefill_dev", calls)
 
     def kv_of(tab, n):
-        return torch.cat([
-            (p[:, tab.long()].flatten(1, 2)[:, :n] if p.dim() == 5
-             else p[tab.long()].flatten(0, 1)[:n]).reshape(-1)
-            for pool in [*be.pages["prefix"], *be.pages["units"].values()]
-            for p in pool.values()]).float()
+        pages = be.kv_export_pages(-1, [int(t) for t in tab[:per]])["pages"]
+        out = []
+        for a in tree_leaves(pages):
+            t = torch.from_numpy(a)
+            if t.dtype == torch.int16:               # bf16 bit patterns
+                t = t.view(torch.bfloat16)
+            t = t.flatten(1, 2)[:, :n] if t.dim() == 5 else \
+                t.flatten(0, 1)[:n]
+            out.append(t.float().reshape(-1))
+        return torch.cat(out)
 
     # the decode lanes: each prefilled to ctx-1 tokens on its own pages
-    tabs = torch.stack([table(i * per) for i in range(8)])
+    tabs = np.stack([table(i * per) for i in range(8)])
     for i, c in enumerate(ctxs):
         prefill(tabs[i], ints(c - 1), [c - 1], policies["fixed"][1])
     tok = ints(8, 1)
-    pos = torch.tensor(ctxs, dtype=torch.int32, device=dev) - 1
+    pos = np.asarray(ctxs, np.int32) - 1
     prompt = ints(52)
 
     def decode(group, width):
@@ -1050,19 +1412,17 @@ def batch_invariance(torch, be, rows) -> dict:
         outs = []
         W = width(group)
         for lo in range(0, 8, group):
-            t = torch.zeros((W, 1), dtype=torch.int32, device=dev)
-            p = torch.zeros(W, dtype=torch.int32, device=dev)
-            tb = torch.full((W, be.n_max), be.scrap, dtype=torch.int32,
-                            device=dev)
+            t = np.zeros((W, 1), np.int32)
+            p = np.zeros(W, np.int32)
+            tb = np.full((W, be.n_max), be.scrap, np.int32)
             t[:group], p[:group] = tok[lo:lo + group], pos[lo:lo + group]
             tb[:group] = tabs[lo:lo + group]
-            logits, be.pages = be.model.decode_paged(
-                be.params, be.pages, t, p, tb, fused=be.fused)
-            outs.append(logits[:group])
+            outs.append(be.decode_logits(t, p, tb)[:group])
         return torch.cat(outs)
 
     result = {}
-    for k, (name, (dec_w, pf_w)) in enumerate(policies.items()):
+    for k, name in enumerate(names):
+        dec_w, pf_w = policies[name]
         kvs = []
         for i, chunks in enumerate(([52], [32, 20], [16, 16, 16, 4])):
             tab = table((8 + 3 * k + i) * per)
@@ -1078,8 +1438,9 @@ def batch_invariance(torch, be, rows) -> dict:
             parts.append(f"{group}: {same}/8 bitwise, argmax {top}/8, "
                          f"max|diff| {(lg - base).abs().max().item():.3e}")
             equal = equal and same == 8
-        print(f"  batch invariance, {name} padding: decode in groups of "
-              f"[{'; '.join(parts)}] vs groups of 8; prefill KV of 52 "
+        label = f" (tp={be.tp})" if be.tp > 1 else ""
+        print(f"  batch invariance{label}, {name} padding: decode in groups "
+              f"of [{'; '.join(parts)}] vs groups of 8; prefill KV of 52 "
               f"tokens in chunks 32+20 and 16x3+4 vs 52: max|diff| "
               f"{pf_diff:.3e}; {'all equal' if equal else 'NOT all equal'}")
         result[name] = equal
@@ -1820,7 +2181,7 @@ def mixers_vs_cpu(torch, cfg, params) -> None:
 def mixer_share(torch, cfg, params, x, busy_ms, mixer) -> str:
     """One ``mixer`` layer's prefill on ``x`` profiled alone, times the
     model's layers of that mixer, as a share of a forward's device-busy
-    ``busy_ms``."""
+    ``busy_ms`` (None: a forward that was not profiled)."""
     from repro_torch.models.layers import rms_norm
     from repro_torch.models.transformer import MIXERS
 
@@ -1831,11 +2192,12 @@ def mixer_share(torch, cfg, params, x, busy_ms, mixer) -> str:
     slow = mixer == "slstm"               # a kernel per op per step of S
     _, one_ms, n, _ = profiled(
         torch, lambda: MIXERS[mixer](h, lp, cfg, "prefill"),
-        reps=1 if slow else 5, warmup=1, cpu=not slow)
+        reps=1 if slow else 5, warmup=1, cpu=False)
     layers = cfg.num_units * sum(m == mixer for m, _ in cfg.unit_pattern)
+    share = ("" if busy_ms is None
+             else f" ({one_ms * layers / busy_ms:.3f} of busy)")
     return (f"{mixer} {one_ms:.3f} ms device busy a layer ({n:.0f} kernels)"
-            f" x {layers} = {one_ms * layers:.3f} ms "
-            f"({one_ms * layers / busy_ms:.3f} of busy)")
+            f" x {layers} = {one_ms * layers:.3f} ms{share}")
 
 
 def family(torch, fa, arch, card) -> int:
@@ -1984,27 +2346,40 @@ def family(torch, fa, arch, card) -> int:
           f"{arch}: serving logits / tokens")
 
     stages["main path"] = time.perf_counter() - t0 - sum(stages.values())
-    # one profiled prefill forward and one profiled decode step
-    slow = "slstm" in mixers          # a kernel per op per step of S
-    wall_ms, busy_ms, n, top = profiled(
-        torch, lambda: prefill_step(params, mbatch), reps=1 if slow else 5,
-        warmup=0 if slow else 3, cpu=not slow)     # the main path warmed it
+    # one profiled prefill forward (for xlstm one layer of each mixer
+    # alone: the profiler takes minutes over the sLSTM loop's 225k kernels
+    # of a whole prefill) and one profiled decode step
     x = model._embed(params, mbatch, "prefill")
-    shares = [mixer_share(torch, cfg, params, x, busy_ms, m)
-              for m in mixers if m != "attn"]
-    if moe_layers(cfg):
-        shares.append(moe_share(torch, cfg, params, x, busy_ms))
-    flash_ms = sum(ms for ms, _, key in top if "flash_wgmma_kernel" in key)
-    print(f"  {arch} bf16 prefill forward B={Bm} S={Sm}: wall "
-          f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms (idle share "
-          f"{1 - busy_ms / wall_ms:.3f}), {n:.0f} kernels, flash kernel "
-          f"{flash_ms:.3f} ms ({flash_ms / busy_ms:.3f} of busy)"
-          + "".join("; " + s for s in shares))
-    for ms, count, key in top[:8]:
-        print(f"    {ms:.4f} ms x{count} {key[:90]}")
+    if "slstm" in mixers:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        prefill_step(params, mbatch)            # the main path warmed it
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t1) * 1e3
+        print(f"  {arch} bf16 prefill forward B={Bm} S={Sm}: wall "
+              f"{wall_ms:.3f} ms (one call, not profiled); "
+              + "; ".join(mixer_share(torch, cfg, params, x, None, m)
+                          for m in mixers if m != "attn"))
+    else:
+        wall_ms, busy_ms, n, top = profiled(
+            torch, lambda: prefill_step(params, mbatch), cpu=False)
+        shares = [mixer_share(torch, cfg, params, x, busy_ms, m)
+                  for m in mixers if m != "attn"]
+        if moe_layers(cfg):
+            shares.append(moe_share(torch, cfg, params, x, busy_ms))
+        flash_ms = sum(ms for ms, _, key in top
+                       if "flash_wgmma_kernel" in key)
+        print(f"  {arch} bf16 prefill forward B={Bm} S={Sm}: wall "
+              f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms (idle share "
+              f"{1 - busy_ms / wall_ms:.3f}), {n:.0f} kernels, flash kernel "
+              f"{flash_ms:.3f} ms ({flash_ms / busy_ms:.3f} of busy)"
+              + "".join("; " + s for s in shares))
+        for ms, count, key in top[:8]:
+            print(f"    {ms:.4f} ms x{count} {key[:90]}")
     tok = out[-1]
     wall_ms, busy_ms, n, top = profiled(
-        torch, lambda: serve_step(params, grown, tok, Sm + GREEDY_STEPS - 1))
+        torch, lambda: serve_step(params, grown, tok, Sm + GREEDY_STEPS - 1),
+        cpu=False)
     print(f"  {arch} bf16 decode step B={Bm} at position "
           f"{Sm + GREEDY_STEPS - 1}: wall {wall_ms:.3f} ms, device busy "
           f"{busy_ms:.3f} ms (idle share {1 - busy_ms / wall_ms:.3f}), "
@@ -2824,6 +3199,7 @@ def main() -> int:
     print("serving tinyllama-1.1b (full width, bf16, random weights), gmg:")
     be, summ, counts_f, dig_f1 = serve(torch, pa, fused=True, decode_steps=1)
     fwd_f = be.n_decode_forwards
+    streams1 = {r: list(t) for r, t in be.generated.items()}
     tok = torch.zeros((64, 1), dtype=torch.int32, device="cuda")
     pos = torch.zeros(64, dtype=torch.int32, device="cuda")
     tabs = torch.full((64, be.n_max), be.scrap, dtype=torch.int32,
@@ -2918,6 +3294,10 @@ def main() -> int:
     # 4c. the fleet: disaggregated and routed replicas on the card
     fleet(torch, pa, dig_f1, card)
 
+    # 4c'. serving tensor parallelism, the ranks sharing the card
+    tp_err, tp_launches = tp_phase(torch, pa, card, streams1)
+    main_err.update({k: max(main_err[k], v) for k, v in tp_err.items()})
+
     # 4d. the MoE model through the paged path, full width, depth cut
     kimi_launches = kimi_serving(torch, pa, card)
 
@@ -3005,10 +3385,11 @@ def main() -> int:
               f"SDPA {lib_of[name]:.4f} ms, {launches} launches = "
               f"{per_step:g} per {'verify' if 'verify' in name else 'decode'}"
               f" forward on tinyllama-1.1b, {kimi_launches[name]} on "
-              f"kimi-k2's")
+              f"kimi-k2's, {tp_launches[name]} on the tensor-parallel runs' "
+              f"ranks")
         records.append(dict(
             name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
-            launches=launches + kimi_launches[name],
+            launches=launches + kimi_launches[name] + tp_launches[name],
             max_abs_err=main_err[name], ms=ms,
             plain_ms=plain_ms, bound_ms=bound_ms,
             bound_by="bytes" if t_bytes >= t_ops else "operations",

@@ -1,7 +1,7 @@
 """Quickstart: SLO-aware serving with Tempo vs FCFS in ~1 minute.
 
   PYTHONPATH=src python -m repro_torch.examples.quickstart \\
-      [--backend {sim,torch}] [--device cpu]
+      [--backend {sim,torch}] [--device cpu] [--tp N]
 
 Generates a mixed-SLO workload (latency-streaming chat, deadline'd
 throughput jobs, collective agent DAGs — paper §2.1) and serves it under
@@ -17,7 +17,12 @@ cache (``PagedTorchBackend``; the hand-written CUDA paged attention on the
 GPU) — over a length-capped workload that fits the device page pool.
 Step times are measured wall time.  It runs on the GPU and raises without
 CUDA; ``--device cpu`` runs the kernels' plain PyTorch versions instead.
-Tensor parallelism (``--tp`` > 1) is not ported and is refused.
+
+--tp N (torch backend): serve tensor-parallel over N ranks, this process
+and N-1 workers, with Megatron-sharded weights and a KV-head-sharded page
+pool (DESIGN.md §8).  On the GPU it takes the first N cards and raises
+with fewer; ``--device cpu`` runs N CPU ranks.  The printed
+``stream-digest`` lines equal ``--tp 1``'s.
 
 --disagg P:D: serve the same workload on a disaggregated fleet — P
 prefill + D decode replicas with live KV migration and the role-aware
@@ -54,7 +59,9 @@ def main(argv=None) -> None:
                     help="torch backend's device (default: the GPU; 'cpu' "
                     "runs the kernels' plain PyTorch versions)")
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel degree (only 1: not ported)")
+                    help="tensor-parallel degree (torch backend): N ranks, "
+                    "the first N cards on the GPU. Token streams equal "
+                    "--tp 1")
     ap.add_argument("--scheduler", default=None,
                     help="serve ONLY this scheduler (e.g. gmg, tempo) "
                     "instead of the default comparison set")
@@ -88,8 +95,8 @@ def main(argv=None) -> None:
                     "colocated replica.  Token streams equal the "
                     "colocated run's")
     args = ap.parse_args(argv)
-    if args.tp != 1:
-        ap.error("--tp > 1: tensor parallelism is not ported")
+    if args.tp < 1:
+        ap.error("--tp wants N >= 1")
     roles = None
     if args.disagg:
         try:
@@ -120,10 +127,10 @@ def main(argv=None) -> None:
         engine_cfg = EngineConfig(max_batch=8, prefill_budget=32,
                                   prefix_cache=args.prefix_cache,
                                   decode_steps=args.decode_steps,
-                                  spec_depth_max=args.spec)
+                                  spec_depth_max=args.spec, tp=args.tp)
         backend_kwargs = dict(arch="tinyllama-1.1b", num_blocks=64,
                               page=16, max_len=128, seed=0,
-                              device=args.device)
+                              device=args.device, tp=args.tp)
         schedulers = ("vllm", "tempo")
     else:
         if args.scenario == "mixed":
@@ -184,17 +191,21 @@ def main(argv=None) -> None:
             raise SystemExit(f"{name}@{args.backend}: prefix cache never "
                              "hit")
         if args.backend == "torch":
-            # equal across --disagg, --decode-steps and --spec by
+            # equal across --disagg, --decode-steps, --spec and --tp by
             # construction; the lines make that checkable from the console
             print(f"stream-digest {name} {_stream_digest(backend)}")
+            for bk in backend if isinstance(backend, list) else [backend]:
+                bk.close()      # tp > 1: checks the ranks, stops workers
 
     if args.backend == "torch":
         where = backend[0].device if isinstance(backend, list) \
             else backend.device
+        extra = (f", tensor-parallel over {args.tp} ranks"
+                 if args.tp > 1 else "")
         print("\nReal PyTorch execution behind the Backend protocol: the "
               "same run loop, schedulers, KV accounting, eviction — and "
               "prefix-cache COW sharing — drive an actual model decoding "
-              f"on a paged KV cache ({where}).")
+              f"on a paged KV cache ({where}{extra}).")
     else:
         print("\nTempo allocates just-enough bandwidth per SLO (paced "
               "streaming, deadline-pressure density, stage-budgeted DAGs) "

@@ -66,6 +66,12 @@ CHUNK = 128
 _tickets: Dict[torch.device, torch.Tensor] = {}
 
 
+def ticket_sum() -> int:
+    """The ticket counters' absolute values summed over every device of
+    this process: 0 whenever no launch is in flight."""
+    return sum(int(t.abs().sum()) for t in _tickets.values())
+
+
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C entry points of a built ``paged_attention`` library
     and check that its chunk length is ``CHUNK``."""

@@ -9,7 +9,10 @@ place.
 
 Paged serving: chunked prefill in plain PyTorch ops, batched one-token
 decode and speculative verification through the paged-attention kernels.
-Page pools are updated in place."""
+Page pools are updated in place.  Head counts come from the weights'
+shapes, so under serving tensor parallelism a rank runs the same code on
+its local heads and ``ctx.psum_attn`` sums the ranks' partial ``wo``
+projections."""
 
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ from repro_torch.kernels.paged_attention import (NEG_INF,
                                                  paged_kv_append,
                                                  paged_kv_append_batch)
 from repro_torch.models.layers import apply_rope, rms_norm, rope_tables
+from repro_torch.models.partition import NULL_CTX
 
 
 class VerifyWindow(NamedTuple):
@@ -174,7 +178,8 @@ def mla_apply(x, p, cfg, mode, cache=None, index=None):
     return out, new_cache
 
 
-def gqa_prefill_paged(x, p, cfg, pages, block_table, start: int, n: int):
+def gqa_prefill_paged(x, p, cfg, pages, block_table, start: int, n: int,
+                      ctx=NULL_CTX):
     """Chunked-prefill attention for ONE sequence against paged KV.
 
     x: (1, C, D) chunk hidden states; rows at or past ``n`` are padding,
@@ -205,11 +210,11 @@ def gqa_prefill_paged(x, p, cfg, pages, block_table, start: int, n: int):
     o = torch.einsum("bckgl,lkd->bckgd", w, vals.float())
     o = o.reshape(B, C, H, Dh)
     out = torch.einsum("bshk,hkd->bsd", o.to(x.dtype), p["wo"])
-    return out, {"k": kp, "v": vp}
+    return ctx.psum_attn(out), {"k": kp, "v": vp}
 
 
 def gqa_decode_paged(x, p, cfg, pages, block_tables, positions, *,
-                     fused=False):
+                     fused=False, ctx=NULL_CTX):
     """Batched one-token decode against paged KV.
 
     x: (B, 1, D); block_tables: (B, n_max) int32; positions: (B,) int32,
@@ -234,10 +239,11 @@ def gqa_decode_paged(x, p, cfg, pages, block_tables, positions, *,
         o = paged_attention(q[:, 0], kp, vp, block_tables, positions + 1,
                             scale=Dh ** -0.5)
     out = torch.einsum("bhk,hkd->bd", o.to(x.dtype), p["wo"])[:, None, :]
-    return out, {"k": kp, "v": vp}
+    return ctx.psum_attn(out), {"k": kp, "v": vp}
 
 
-def gqa_verify_paged(xs, p, cfg, pages, block_tables, win: VerifyWindow):
+def gqa_verify_paged(xs, p, cfg, pages, block_tables, win: VerifyWindow,
+                     ctx=NULL_CTX):
     """Speculative verification attention: W window rows per lane, one
     ``fused_verify_attention`` launch.
 
@@ -272,6 +278,7 @@ def gqa_verify_paged(xs, p, cfg, pages, block_tables, win: VerifyWindow):
                                        block_tables, win.pos0, win.widths,
                                        scale=Dh ** -0.5)
     o = o.view((B * W,) + o.shape[2:])
-    outs = [torch.einsum("bhk,hkd->bd", o[r].to(x.dtype), p["wo"])[:, None]
-            for r, x in zip(win.take, xs)]
+    outs = [ctx.psum_attn(
+        torch.einsum("bhk,hkd->bd", o[r].to(x.dtype), p["wo"])[:, None])
+        for r, x in zip(win.take, xs)]
     return outs, {"k": kp, "v": vp}

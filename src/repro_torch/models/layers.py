@@ -10,6 +10,8 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch.models.partition import NULL_CTX
+
 
 def rms_norm(x, w, eps: float = 1e-5):
     xf = x.float()
@@ -79,10 +81,13 @@ def sinusoidal_embedding(positions: torch.Tensor, d_model: int):
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
-def mlp(x, p):
-    """SwiGLU: ``(silu(x @ w_gate) * (x @ w_up)) @ w_down``."""
+def mlp(x, p, ctx=NULL_CTX):
+    """SwiGLU: ``(silu(x @ w_gate) * (x @ w_up)) @ w_down``.  Under serving
+    TP w_gate/w_up are column- and w_down row-sharded on d_ff, so each
+    rank's down-projection is a partial sum, all-reduced by
+    ``ctx.psum_mlp`` (a no-op otherwise)."""
     h = silu(x @ p["w_gate"]) * (x @ p["w_up"])
-    return h @ p["w_down"]
+    return ctx.psum_mlp(h @ p["w_down"])
 
 
 def lm_loss(h, w_head, labels, mask, vocab_size: int):

@@ -45,6 +45,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.shapes import Shape
 from repro_torch.models.attention import VerifyWindow
 from repro_torch.models.layers import lm_loss, rms_norm, sinusoidal_embedding
+from repro_torch.models.partition import NULL_CTX, AxisCtx
 from repro_torch.models.transformer import (FFNS, MIXERS, stack_apply,
                                             stack_apply_paged)
 
@@ -56,6 +57,8 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 @dataclasses.dataclass
 class Model:
     cfg: ModelConfig
+    # serving-TP collectives of the paged entry points (models.partition)
+    ctx: AxisCtx = NULL_CTX
     # (lm_head, its version counter, its f32 copy); see _head_f32
     _head: Any = dataclasses.field(default=None, repr=False, compare=False)
 
@@ -201,9 +204,12 @@ class Model:
     def _lm_head(self, params, x):
         """Final norm and the lm_head product in f32 (exact products of the
         stored values, f32 sums), as the reference's
-        ``preferred_element_type=float32``; padded vocab columns cut."""
+        ``preferred_element_type=float32``; under serving TP the rank's
+        vocab columns are gathered (``ctx.gather_vocab``) before the padded
+        columns are cut."""
         x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
         logits = x.float() @ self._head_f32(params["lm_head"])
+        logits = self.ctx.gather_vocab(logits)
         return logits[..., :self.cfg.vocab_size]
 
     def _loss_mask(self, batch):
@@ -395,12 +401,13 @@ class Model:
         final prompt token.  Writes the pools in place and returns them."""
         x = params["embed"][tokens.long()]
         _, pages = stack_apply_paged(x, params, self.cfg, "prefill", pages,
-                                     block_table, start, n)
+                                     block_table, start, n, ctx=self.ctx)
         return pages
 
     def _head_f32(self, head: torch.Tensor) -> torch.Tensor:
-        """f32 copy of the lm_head, made once per head tensor (and again
-        after an in-place change to it) instead of in every forward."""
+        """f32 copy of the lm_head (under serving TP the rank's shard of
+        it), made once per head tensor (and again after an in-place change
+        to it) instead of in every forward."""
         if (self._head is None or self._head[0] is not head
                 or self._head[1] != head._version):
             self._head = (head, head._version, head.float())
@@ -415,7 +422,8 @@ class Model:
         f32 sums), as the reference's ``preferred_element_type=float32``."""
         x = params["embed"][tokens.long()]
         x, pages = stack_apply_paged(x, params, self.cfg, "decode", pages,
-                                     block_tables, positions, fused=fused)
+                                     block_tables, positions, fused=fused,
+                                     ctx=self.ctx)
         return self._lm_head(params, x)[:, 0], pages
 
     def verify_paged(self, params, pages, tokens, pos0, widths,
@@ -449,7 +457,7 @@ class Model:
                            pos[rows])
         x = [params["embed"][t[:, None]] for t in tok[rows]]
         x, pages = stack_apply_paged(x, params, self.cfg, "verify", pages,
-                                     block_tables, win)
+                                     block_tables, win, ctx=self.ctx)
         logits = x[0].new_zeros((B * W + 1, self.cfg.vocab_size),
                                 dtype=torch.float32)
         logits[rows.reshape(-1)] = torch.cat(
@@ -471,5 +479,7 @@ def verify_slabs(widths, W: int, slab: int) -> np.ndarray:
     return out.reshape(n, slab)
 
 
-def build_model(cfg: ModelConfig) -> Model:
-    return Model(cfg)
+def build_model(cfg: ModelConfig, ctx: AxisCtx = NULL_CTX) -> Model:
+    """The model of ``cfg``; ``ctx`` carries the serving-TP collectives of
+    one rank (``launch.sharding.serving_tp_ctx``)."""
+    return Model(cfg, ctx)

@@ -31,6 +31,7 @@ from repro_torch.models.attention import (gqa_apply, gqa_decode_paged,
 from repro_torch.models.layers import mlp, rms_norm
 from repro_torch.models.mamba import mamba_apply
 from repro_torch.models.moe import moe_apply
+from repro_torch.models.partition import NULL_CTX
 from repro_torch.models.xlstm import mlstm_apply, slstm_apply
 
 MIXERS = {"attn": gqa_apply, "mla": mla_apply, "mamba": mamba_apply,
@@ -38,12 +39,13 @@ MIXERS = {"attn": gqa_apply, "mla": mla_apply, "mamba": mamba_apply,
 FFNS = ("mlp", "moe", "none")
 
 
-def _ffn(x, lp, ffn, cfg):
-    """x plus the layer's FFN of its normed input (none: x)."""
+def _ffn(x, lp, ffn, cfg, ctx=NULL_CTX):
+    """x plus the layer's FFN of its normed input (none: x).  MoE experts
+    are replicated under serving TP: only the dense MLP takes ``ctx``."""
     if ffn == "none":
         return x
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + (mlp(h, lp) if ffn == "mlp" else moe_apply(h, lp, cfg))
+    return x + (mlp(h, lp, ctx) if ffn == "mlp" else moe_apply(h, lp, cfg))
 
 
 def layer_apply(x, lp, mixer, ffn, cfg, mode, cache=None, index=None):
@@ -130,7 +132,7 @@ def stack_apply(x, params, cfg, mode, caches=None, index=None):
 
 
 def layer_apply_paged(x, lp, mixer, ffn, cfg, mode, pages, tables, pos,
-                      n=None, fused=False):
+                      n=None, fused=False, ctx=NULL_CTX):
     if mixer != "attn":
         raise ValueError(
             f"paged serving supports 'attn' mixers only, got {mixer!r}")
@@ -141,40 +143,41 @@ def layer_apply_paged(x, lp, mixer, ffn, cfg, mode, pages, tables, pos,
         # the FFN once per slab: each slab is a call of the decode step's
         # shape, so a verify row computes bitwise what a decode row does
         h = [rms_norm(xs, lp["ln1"], cfg.norm_eps) for xs in x]
-        mix_out, new_pages = gqa_verify_paged(h, lp, cfg, pages, tables, pos)
-        return [_ffn(xs + m, lp, ffn, cfg)
+        mix_out, new_pages = gqa_verify_paged(h, lp, cfg, pages, tables, pos,
+                                              ctx)
+        return [_ffn(xs + m, lp, ffn, cfg, ctx)
                 for xs, m in zip(x, mix_out)], new_pages
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     if mode == "prefill":
         mix_out, new_pages = gqa_prefill_paged(h, lp, cfg, pages, tables,
-                                               pos, n)
+                                               pos, n, ctx)
     elif mode == "decode":
         mix_out, new_pages = gqa_decode_paged(h, lp, cfg, pages, tables, pos,
-                                              fused=fused)
+                                              fused=fused, ctx=ctx)
     else:
         raise ValueError(f"unknown paged mode {mode!r} "
                          "(prefill | decode | verify)")
-    return _ffn(x + mix_out, lp, ffn, cfg), new_pages
+    return _ffn(x + mix_out, lp, ffn, cfg, ctx), new_pages
 
 
 def stack_apply_paged(x, params, cfg, mode, pages, tables, pos, n=None,
-                      fused=False):
+                      fused=False, ctx=NULL_CTX):
     """mode "prefill": ``tables`` is one sequence's (n_max,) block table,
     ``pos`` the chunk's start offset, ``n`` the real chunk length (rows past
     it are padding).  mode "decode": ``tables`` is (B, n_max), ``pos`` the
     per-sequence write positions (B,).  mode "verify": x is a list of
     slabs (S, 1, d), ``tables`` (B, n_max), ``pos`` the window's
-    ``VerifyWindow``.  The pools are written in place.  Returns (x,
-    pages)."""
+    ``VerifyWindow``.  The pools are written in place.  ``ctx`` carries the
+    serving-TP collectives (``models.partition``).  Returns (x, pages)."""
     for i, (mixer, ffn) in enumerate(cfg.prefix_pattern):
         x, _ = layer_apply_paged(x, params["prefix"][f"l{i}"], mixer, ffn,
                                  cfg, mode, pages["prefix"][i], tables, pos,
-                                 n, fused)
+                                 n, fused, ctx)
     for u in range(cfg.num_units):
         for i, (mixer, ffn) in enumerate(cfg.unit_pattern):
             key = f"l{i}"
             lp = {name: leaf[u] for name, leaf in params["units"][key].items()}
             up = {name: leaf[u] for name, leaf in pages["units"][key].items()}
             x, _ = layer_apply_paged(x, lp, mixer, ffn, cfg, mode, up, tables,
-                                     pos, n, fused)
+                                     pos, n, fused, ctx)
     return x, pages

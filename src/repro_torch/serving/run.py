@@ -258,7 +258,10 @@ def run_cluster(exp: ExperimentSpec) -> FleetSummary:
     device (``cuda`` unless the backend kwargs say ``device="cpu"``), one
     at a time from this thread, so kernel launches of two replicas never
     overlap.  Tensor-parallel replicas (``engine.tp > 1`` on the torch
-    backend) are not ported and raise.
+    backend) each get a slice of ``tp`` CUDA devices, wrapping
+    round-robin over the host's cards, as the reference's do; a host with
+    fewer cards than ``tp`` gets no slice and the backend raises (ranks
+    share a card only when the backend kwargs name ``devices``).
 
     ``cluster.roles`` disaggregates the fleet: one role per initial
     replica (overriding ``n_replicas`` to its length), e.g.
@@ -277,16 +280,26 @@ def run_cluster(exp: ExperimentSpec) -> FleetSummary:
     exp, base_sk = _prep(exp)
     cs, tel, bs = exp.cluster, exp.telemetry, exp.backend
     engine_cfg, service = exp.engine, exp.service
-    if engine_cfg.tp > 1 and bs.factory is None and bs.kind == "torch":
-        raise NotImplementedError(
-            "tensor-parallel replicas (engine.tp > 1) are not ported")
     n_replicas = len(cs.roles) if cs.roles else cs.n_replicas
     # every replica runs the SAME model: a fresh backend per replica (own
     # page pool / timers / generator), built from the same backend spec
     backend_factory = bs.factory
     if backend_factory is None:
+        base_kw = _with_tp(bs.kind, bs.kwargs, engine_cfg)
+
         def backend_factory(rid: int):
-            return make_backend(bs.kind, bs.kwargs)
+            kw = base_kw
+            tp = (base_kw or {}).get("tp", 1)
+            if (bs.kind == "torch" and tp > 1 and "devices" not in base_kw
+                    and base_kw.get("device") in (None, "cuda")):
+                import torch
+                n = torch.cuda.device_count()
+                # distinct per replica, wrapping round-robin; with fewer
+                # cards than tp pass nothing and let the backend raise
+                if n >= tp:
+                    kw = dict(base_kw, devices=[
+                        f"cuda:{(rid * tp + i) % n}" for i in range(tp)])
+            return make_backend(bs.kind, kw)
     if bs.sink is not None:
         _inner_bf = backend_factory
 

@@ -10,9 +10,13 @@ restores in the other.  Writes are atomic (tmp + rename), so a crash
 mid-save never corrupts the latest checkpoint; ``keep`` old checkpoints are
 retained for rollback.
 
-The port has no mesh: ``restore`` keeps the reference's
-``param_shardings`` / ``opt_shardings`` keywords and refuses any value but
-None.  Leaves restore onto the device and dtype of the ``*_like`` tree's.
+Leaves restore onto the device and dtype of the ``*_like`` tree's.  The
+port has no mesh: ``restore``'s ``param_shardings`` / ``opt_shardings``
+(the reference's ``NamedSharding`` trees, for an elastic restore onto
+another layout) take a ``RankShard``, one rank's place in a tensor-parallel
+group: the full checkpoint is read and each leaf sliced on the host to
+that rank's shard before it moves to the device, so a rank restores its
+shard of a checkpoint written unsharded.
 """
 
 from __future__ import annotations
@@ -20,10 +24,22 @@ from __future__ import annotations
 import json
 import os
 import shutil
-from typing import Any, Dict, Optional
+from typing import Any, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.launch.sharding import shard_tree
+from repro_torch.models.convert import tree_map
+
+
+class RankShard(NamedTuple):
+    """Rank ``rank`` of a ``tp``-way group under ``specs``, a tree of
+    per-leaf specs (``launch.sharding``, e.g. ``paged_param_specs``) in the
+    restored tree's layout."""
+    specs: Any
+    rank: int
+    tp: int
 
 
 def _paths(tree, prefix=()):
@@ -54,18 +70,31 @@ def _flatten(tree) -> Dict[str, Any]:
     return flat
 
 
-def _unflatten(like, flat: Dict[str, Any]):
-    def build(t, path):
+def _unflatten(like, flat: Dict[str, Any], shard=None):
+    """``like``'s tree with the checkpoint's arrays at its leaves, as
+    tensors on each like leaf's device and dtype; with ``shard`` (a
+    ``RankShard``) each array is first sliced on the host to the rank's
+    shard."""
+    def arrays(t, path):
         if isinstance(t, dict):
-            return {k: build(v, path + (k,)) for k, v in t.items()}
+            return {k: arrays(v, path + (k,)) for k, v in t.items()}
         if isinstance(t, (tuple, list)):
-            return type(t)(build(v, path + (i,)) for i, v in enumerate(t))
-        arr = flat[_key(path)]
+            return type(t)(arrays(v, path + (i,)) for i, v in enumerate(t))
+        return flat[_key(path)]
+
+    tree = arrays(like, ())
+    if shard is not None:
+        if not isinstance(shard, RankShard):
+            raise TypeError("restore's shardings take a RankShard (specs, "
+                            f"rank, tp), got {type(shard).__name__}")
+        tree = shard_tree(tree, shard.specs, shard.rank, shard.tp)
+
+    def place(arr, t):
         if isinstance(t, torch.Tensor):
             return torch.from_numpy(np.array(arr)).to(device=t.device,
                                                       dtype=t.dtype)
         return arr
-    return build(like, ())
+    return tree_map(place, tree, like)
 
 
 class CheckpointManager:
@@ -110,16 +139,19 @@ class CheckpointManager:
 
     def restore(self, step: int, params_like, opt_like=None,
                 param_shardings=None, opt_shardings=None):
-        if param_shardings is not None or opt_shardings is not None:
-            raise NotImplementedError("the port has no mesh: restore onto "
-                                      "params_like's devices instead")
+        """The checkpoint of ``step`` in the layout, devices and dtypes of
+        ``params_like`` / ``opt_like`` (the trees' structure; their leaves'
+        shapes are not consulted), each optionally sliced to one rank's
+        shard by a ``RankShard``.  Returns (params, opt or None, meta)."""
         d = self._ckpt_dir(step)
         params = _unflatten(params_like,
-                            dict(np.load(os.path.join(d, "params.npz"))))
+                            dict(np.load(os.path.join(d, "params.npz"))),
+                            param_shardings)
         opt = None
         if opt_like is not None and os.path.exists(os.path.join(d, "opt.npz")):
             opt = _unflatten(opt_like,
-                             dict(np.load(os.path.join(d, "opt.npz"))))
+                             dict(np.load(os.path.join(d, "opt.npz"))),
+                             opt_shardings)
         with open(os.path.join(d, "meta.json")) as f:
             meta = json.load(f)
         return params, opt, meta

@@ -110,8 +110,10 @@ def test_backend_rejects_oversized_request():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="tensor parallel"):
-        _backend(tp=2)
+    # tensor parallelism is ported (tests/test_torch_tp.py); a tp degree
+    # without a device per rank is refused before any rank starts
+    with pytest.raises(ValueError, match="needs 2 devices"):
+        _backend(tp=2, devices=["cpu"])
     with pytest.raises(ValueError, match="jax"):
         run(ExperimentSpec(backend=BackendSpec(kind="jax")))
     with pytest.raises(ValueError, match="cluster"):

@@ -148,10 +148,14 @@ def test_from_kwargs_attaches_a_cluster_and_rejects_unknown():
 def test_run_refuses_a_cluster_and_the_fleet_refuses_tp():
     with pytest.raises(ValueError, match="use run_cluster"):
         T.run(T.ExperimentSpec(cluster=T.ClusterSpec()))
-    with pytest.raises(NotImplementedError, match="tp > 1"):
+    # tensor-parallel replicas are ported (tests/test_torch_tp.py); a tp
+    # degree the replicas' devices cannot hold is refused before any rank
+    # starts
+    with pytest.raises(ValueError, match="needs 2 devices"):
         T.run_cluster(T.ExperimentSpec(
             engine=EngineConfig(tp=2),
-            backend=T.BackendSpec(kind="torch", kwargs=dict(device="cpu")),
+            backend=T.BackendSpec(kind="torch",
+                                  kwargs=dict(devices=["cpu"])),
             cluster=T.ClusterSpec()))
 
 

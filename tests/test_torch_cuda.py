@@ -7,7 +7,8 @@ horizons and speculation, the flash kernel's causal mask, the flash
 backward kernel against its plain version (bitwise repeatable), the reduced
 full-sequence forward and the reduced ``Model.loss`` gradients on the card
 equal to the CPU's (MoE stacks among them), a 2-replica reduced fleet (disaggregated and routed) with merged
-streams equal to one replica's, and the migration round trip bitwise.
+streams equal to one replica's, the migration round trip bitwise, and
+tensor-parallel ranks sharing the card streaming as one rank.
 Marked ``cuda``; skips without a GPU.  Run on the GPU machine with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -340,6 +341,53 @@ def test_reduced_model_streams_equal_across_modes(cuda):
     assert streams(True, 1, spec=4, temperature=0.8) == hot
     assert streams(True, 1, spec=4, temperature=0.8,
                    drafter=replay(hot)) == hot
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_reduced_tp_ranks_sharing_the_card_stream_as_tp1(cuda, tp):
+    """tp ranks sharing the card (collectives through shared device
+    buffers; at tp=4 the reduced model's KV=2 replicates attention): the
+    reduced f32 model's streams equal tp=1's on the card, n=4 and spec 4
+    included; the ranks' hashes agree and every rank launched the paged
+    kernels, its ticket counters back at zero."""
+    from repro_torch.core.baselines import make_scheduler
+    from repro_torch.serving.engine import EngineConfig, ServeEngine
+    from repro_torch.serving.request import Request, SLOSpec
+    from repro_torch.serving.torch_backend import PagedTorchBackend
+
+    def streams(n, decode_steps=1, spec=0):
+        kw = dict(tp=n, devices=[cuda] * n) if n > 1 else dict(device=cuda)
+        be = PagedTorchBackend(num_blocks=16, page=16, max_len=64, seed=0,
+                               **kw)
+        try:
+            eng = ServeEngine(be, make_scheduler("tempo",
+                                                 use_predictor=False),
+                              EngineConfig(max_batch=4, prefill_budget=32,
+                                           decode_steps=decode_steps,
+                                           spec_depth_max=spec, tp=n))
+            reqs = [Request(rid=rid, app="chatbot", arrival=0.0,
+                            prompt_len=20, true_output_len=10,
+                            slo=SLOSpec("throughput", ttlt=1e6))
+                    for rid in (1, 2, 3)]
+            reqs[1].meta["prompt_tokens"] = [11, 42, 7, 99] * 5
+            eng.load(reqs, [])
+            assert len(eng.run()) == 3
+            assert spec == 0 or eng.spec_proposed > 0
+            if n > 1:
+                stats = be.rank_stats()
+                assert {st["data"] for st in stats} == {"shared"}
+                assert len({st["digest"] for st in stats}) == 1
+                assert all(st["tickets"] == 0 and
+                           st["launches"]["fused_decode_attention"] > 0
+                           for st in stats)
+            return {rid: list(t) for rid, t in be.generated.items()}
+        finally:
+            be.close()
+
+    ref = streams(1)
+    assert streams(tp) == ref
+    assert streams(tp, decode_steps=4) == ref
+    assert streams(tp, spec=4) == ref
 
 
 # the bf16 (tensor-core) body at every head-dim pair it is built for, GQA

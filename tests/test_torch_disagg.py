@@ -241,9 +241,11 @@ def test_quickstart_disagg_digests_equal_colocated(capsys):
 def test_quickstart_refuses_tp_and_runs_on_the_gpu_by_default():
     from repro_torch.examples import quickstart
 
+    # --tp N runs tensor-parallel (tests/test_torch_tp_fleet.py); a degree
+    # below 1 is refused
     with pytest.raises(SystemExit):
         quickstart.main(["--backend", "torch", "--device", "cpu",
-                         "--tp", "2"])
+                         "--tp", "0"])
     if torch.cuda.is_available():
         return
     with pytest.raises(RuntimeError, match="device='cpu'"):

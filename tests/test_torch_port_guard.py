@@ -80,7 +80,10 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
             "repro_torch.training.fault_tolerance",
             "repro_torch.data",
             "repro_torch.data.pipeline",
-            "repro_torch.launch.train"} <= set(mods)
+            "repro_torch.launch.train",
+            "repro_torch.launch.sharding",
+            "repro_torch.models.partition",
+            "repro_torch.serving.tp"} <= set(mods)
     code = textwrap.dedent(f"""
         import importlib, importlib.abc, sys
         class Refuse(importlib.abc.MetaPathFinder):

@@ -168,7 +168,8 @@ def test_restart_continuity_exact(tmp_path):
 def test_restore_onto_like_device_and_no_mesh(tmp_path):
     """The port's counterpart of the reference's elastic restore: leaves
     restore onto ``params_like``'s device and dtype; the port has no mesh,
-    so shardings are refused."""
+    so a sharding that is not a ``RankShard`` (a rank's place in a
+    tensor-parallel group, ``tests/test_torch_tp.py``) is refused."""
     cm = CheckpointManager(str(tmp_path), keep=1)
     params = {"w": torch.arange(16.0).reshape(4, 4)}
     cm.save(5, params)
@@ -177,7 +178,7 @@ def test_restore_onto_like_device_and_no_mesh(tmp_path):
     assert got["w"].dtype == torch.bfloat16
     assert got["w"].device == like["w"].device
     assert torch.equal(got["w"].float(), params["w"])
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="RankShard"):
         cm.restore(5, params, param_shardings={"w": None})
 
 
