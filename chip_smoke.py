@@ -38,7 +38,13 @@ tp=1's top-2 logit gaps; the logits on identical pools; what sharing the
 card costs a decode forward), a 1 prefill + 1 decode fleet at tp=2 (its
 merged digest equal to the colocated tp=2 run's), full width cut to 2
 layers in f32 at tp=1, 2 and 4 (equal digests), every rank's token hash
-and ticket counters checked, serves the MoE model kimi-k2 at full width
+and ticket counters checked, profiles one decode dispatch of full-width
+tinyllama-1.1b against the H100's roofline (``roofline_decode_step`` at
+1, 8 and 64 live lanes, one dispatch and the window of 4 tokens; the
+fused decode kernel reports its cost), runs deepseek-v2-lite-16b's MoE
+layer at full width expert-parallel on ranks sharing the card (grids (1,
+2), (1, 4) and (2, 2); 'weights' and decode 'tokens' modes, f32 and bf16)
+against ``moe_ep_ref``, serves the MoE model kimi-k2 at full width
 (its depth cut to one layer) through the same backend and workload (gmg
 fused / unfused / four decode steps, vllm spec 0 / 4 / replayed drafts,
 equal streams within each scheduler; batch invariance, verify logits
@@ -1335,6 +1341,220 @@ def tp_phase(torch, pa, card, streams1) -> tuple:
     print(f"  tensor-parallel phase: {time.perf_counter() - t0:.1f} s wall, "
           f"paged launches over its runs and ranks {total} ({card})")
     return errs, total
+
+
+# ---------------------------------------------------------------------------
+# the roofline of a decode dispatch, and expert parallelism over ranks
+# ---------------------------------------------------------------------------
+# live lanes of the decode dispatches profiled (the call computes ROWS)
+ROOFLINE_LIVE = (1, 8, 64)
+ROOFLINE_STEPS = 4
+# the MoE layer of the EP phase: deepseek-v2-lite-16b at full width (d 2048,
+# 64 experts top-6, expert d_ff 1408, 2 shared), x (2, 1024, 2048) in
+# prefill ('weights' mode) and 64 decode lanes (64, 1, 2048) under decode
+# TP ('tokens' mode); grids (data, model) of ranks sharing cuda:0
+EP_ARCH = "deepseek-v2-lite-16b"
+EP_GRIDS = {(1, 2): ("weights",), (1, 4): ("weights",),
+            (2, 2): ("weights", "tokens")}
+EP_X = {"weights": (2, 1024, 2048), "tokens": (64, 1, 2048)}
+# ranks against moe_ep_ref on the card: f32 within 1e-5; bf16 within 2^-6
+# of the largest |value| of the plain version's output (its GEMMs, gathers
+# and sums are the ranks' at the ranks' shapes, so a few bf16 ulps of the
+# output at most)
+EP_F32_ATOL = 1e-5
+EP_BF16_REL = 2.0 ** -6
+EP_SLOT_BYTES = 64 << 20
+EP_REPS = 3
+
+
+def roofline_phase(torch, pa, card) -> int:
+    """``roofline_decode_step`` at full-width tinyllama-1.1b on the card,
+    fused decode, at 1, 8 and 64 live lanes, one dispatch and the window
+    of 4 tokens: one line per record.  The fused decode kernel must report
+    its cost (``hlo_opaque`` false).  Returns the kernel's launches in the
+    phase (counted from 0)."""
+    from repro_torch.launch.roofline import roofline_decode_step
+    from repro_torch.obs import MetricsRegistry
+
+    t0 = time.perf_counter()
+    print(f"roofline of one decode dispatch, tinyllama-1.1b full width, "
+          f"fused, bf16 ({card}; H100 SXM spec peaks: 989 TFLOP/s bf16, "
+          f"3.35 TB/s):")
+    reg = MetricsRegistry()
+    for k in pa.launches:
+        pa.launches[k] = 0
+    for live in ROOFLINE_LIVE:
+        rec = roofline_decode_step(
+            arch="tinyllama-1.1b", batch=live, num_blocks=64, page=16,
+            max_len=256, repeats=10, registry=reg, steps=ROOFLINE_STEPS,
+            device="cuda", reduced=False)
+        check(not rec["hlo_opaque"], f"live {live}: a kernel launched "
+              "without reporting its cost")
+        check(rec["kernel_reports"].get("fused_decode_attention") == 22,
+              f"live {live}: {rec['kernel_reports']} kernel reports, not "
+              "22 fused decode launches")
+        check(rec["measured_s"] > 0 and rec["multi_measured_s"] > 0,
+              f"live {live}: no time measured")
+        print(f"  live {live}, {rec['batch']} lanes computed, steps 1: "
+              f"measured {rec['measured_s'] * 1e3:.4f} ms, roofline "
+              f"{rec['roofline_s'] * 1e3:.5f} ms ({rec['dominant']}: compute "
+              f"{rec['t_compute_s'] * 1e3:.5f}, memory opt "
+              f"{rec['t_memory_opt_s'] * 1e3:.5f} / pess "
+              f"{rec['t_memory_s'] * 1e3:.5f} ms), counted "
+              f"{rec['hlo_flops_per_chip']:.6g} FLOP, "
+              f"{rec['hlo_bytes_opt_per_chip']:.6g} B opt, "
+              f"{rec['hlo_bytes_per_chip']:.6g} B pess, model "
+              f"{rec['model_flops']:.6g} FLOP, mfu measured "
+              f"{rec['mfu_measured']:.6f}, bound {rec['mfu_bound']:.4f}, "
+              f"opaque {rec['hlo_opaque']}")
+        print(f"  live {live}, {rec['batch']} lanes computed, steps "
+              f"{rec['multi_steps']}: window {rec['multi_measured_s'] * 1e3:.4f}"
+              f" ms, {rec['multi_measured_s_per_token'] * 1e3:.4f} ms a "
+              f"token, speedup per token {rec['multi_speedup_per_token']:.4f}"
+              f", counted {rec['multi_hlo_flops_per_chip']:.6g} FLOP, "
+              f"{rec['multi_hlo_bytes_per_chip']:.6g} B")
+        torch.cuda.empty_cache()
+    launches = pa.launches["fused_decode_attention"]
+    check(launches > 0, "fused_decode_attention never launched in the "
+          "roofline phase")
+    print(f"  roofline phase: {time.perf_counter() - t0:.1f} s, "
+          f"fused_decode_attention launches {launches}")
+    return launches
+
+
+def _ep_inputs(torch, cfg, mode, dtype, device):
+    """The EP phase's weights and input, drawn from seed 5 on ``device``
+    (every rank draws the same)."""
+    g = torch.Generator(device=device).manual_seed(5)
+    E, d, F = cfg.num_experts, cfg.d_model, cfg.d_ff_expert
+
+    def rnd(*shape, scale=0.02):
+        return (torch.randn(shape, generator=g, device=device)
+                * scale).to(dtype)
+
+    p = {"router": rnd(d, E), "w_gate": rnd(E, d, F), "w_up": rnd(E, d, F),
+         "w_down": rnd(E, F, d)}
+    return rnd(*EP_X[mode], scale=1.0), p
+
+
+def _ep_case_ctx(cfg, mesh, mode, groups=None):
+    from repro_torch.launch.sharding import make_ctx
+
+    phase = "decode" if mode == "tokens" else "prefill"
+    kw = {} if groups is None else dict(ep_group=groups["model"],
+                                        fsdp_group=groups["data"])
+    return make_ctx(cfg, mesh, phase, decode_tp=mode == "tokens", **kw)
+
+
+def _ep_rank(groups, rank, mesh, modes):
+    """One rank of an EP grid: for each mode and dtype, its shards, one
+    warm-up, then ``EP_REPS`` timed ``moe_ep`` calls (CUDA events; the
+    ranks time-share the card and wait for each other in the
+    collectives).  Returns [(mode, dtype, output block on the host, kept
+    choices, median ms)]."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.moe import ep_shards, moe_ep
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(EP_ARCH)
+    dev = mesh.devices[rank]
+    out = []
+    for mode in modes:
+        for dtype in (torch.float32, torch.bfloat16):
+            ctx = _ep_case_ctx(cfg, mesh, mode, groups)
+            x, p = _ep_inputs(torch, cfg, mode, dtype, dev)
+            xs, ps = ep_shards(x, p, cfg, ctx, rank)
+            del x, p
+            st = {}
+            y = moe_ep(xs, ps, cfg, ctx, stats=st)
+            times = []
+            for _ in range(EP_REPS):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                moe_ep(xs, ps, cfg, ctx)
+                b.record()
+                b.synchronize()
+                times.append(a.elapsed_time(b))
+            out.append((mode, str(dtype), y.cpu(), int(st["kept"]),
+                        sorted(times)[len(times) // 2]))
+            del xs, ps, y
+            torch.cuda.empty_cache()
+    return out
+
+
+def ep_phase(torch, card) -> None:
+    """Expert-parallel MoE at deepseek-v2-lite-16b's full width on ranks
+    sharing cuda:0 (``serving.tp.run_grid``; their collectives through
+    shared device buffers): grids (1, 2) and (1, 4) in 'weights' mode and
+    (2, 2) in 'weights' and decode 'tokens' mode, each in f32 and bf16, one
+    rank group per grid.  Each rank's output block is held against
+    ``moe_ep_ref`` on the card (f32 within ``EP_F32_ATOL``, bf16 within
+    ``EP_BF16_REL`` of the largest value), the kept expert choices equal in
+    number; every rank's exit code 0.  The ranks' device ms are printed
+    beside the dense ``moe_dense`` on the same input: a finding, not a
+    claim (the ranks time-share one card)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.moe import ep_shards, moe_dense, moe_ep_ref
+    from repro_torch.serving.tp import run_grid
+
+    t0 = time.perf_counter()
+    cfg = get_config(EP_ARCH)
+    dev = torch.device("cuda", 0)
+    flush = torch.empty(32 * 2**20, dtype=torch.float32, device=dev)
+    print(f"expert parallelism, {EP_ARCH} MoE layer at full width (d "
+          f"{cfg.d_model}, {cfg.num_experts} experts top-{cfg.top_k}, expert "
+          f"d_ff {cfg.d_ff_expert}, capacity factor {cfg.capacity_factor}), "
+          f"ranks sharing cuda:0 ({card}):")
+    dense_ms = {}
+    for grid, modes in EP_GRIDS.items():
+        t1 = time.perf_counter()
+        mesh = make_local_mesh(model=grid[1], data=grid[0], device=dev)
+        results, codes = run_grid(_ep_rank, mesh, (mesh, modes),
+                                  slot_bytes=EP_SLOT_BYTES)
+        check(all(c == 0 for c in codes), f"EP grid {grid}: worker exit "
+              f"codes {codes}")
+        spawn_s = time.perf_counter() - t1
+        for i, (mode, dtype_name, _, _, _) in enumerate(results[0]):
+            dtype = getattr(torch, dtype_name.split(".")[-1])
+            ctx = _ep_case_ctx(cfg, mesh, mode)
+            x, p = _ep_inputs(torch, cfg, mode, dtype, dev)
+            st = {}
+            y_ref = moe_ep_ref(x, p, cfg, ctx, stats=st)
+            kept = sum(r[i][3] for r in results)
+            check(kept == int(st["kept"]), f"EP grid {grid} {mode} "
+                  f"{dtype_name}: kept {kept} != the plain version's "
+                  f"{int(st['kept'])}")
+            scale = float(y_ref.float().abs().max())
+            tol = EP_F32_ATOL if dtype == torch.float32                 else EP_BF16_REL * scale
+            err = 0.0
+            for r in range(mesh.size):
+                want = ep_shards(y_ref, p, cfg, ctx, r)[0].float().cpu()
+                got = results[r][i][2].float()
+                check(got.shape == want.shape and bool(torch.isfinite(
+                    got).all()), f"EP grid {grid} rank {r}: bad output")
+                err = max(err, float((got - want).abs().max()))
+            check(err <= tol, f"EP grid {grid} {mode} {dtype_name}: max "
+                  f"|rank - plain| {err:.3g} > {tol:.3g}")
+            key = (mode, dtype_name)
+            if key not in dense_ms:
+                dense_ms[key] = median_ms(torch, lambda: moe_dense(x, p, cfg),
+                                          flush, reps=EP_REPS)
+            rank_ms = [r[i][4] for r in results]
+            print(f"  grid {grid} {mode} {dtype_name} x {tuple(x.shape)}: "
+                  f"max |rank - moe_ep_ref| {err:.3g} (tolerance {tol:.3g}), "
+                  f"kept {kept} expert choices (= plain), ranks' moe_ep ms "
+                  f"{', '.join(f'{t:.3f}' for t in rank_ms)} vs dense "
+                  f"moe_dense {dense_ms[key]:.3f} ms on one process")
+            del x, p, y_ref
+            torch.cuda.empty_cache()
+        print(f"  grid {grid}: {mesh.size} ranks, exit codes {codes}, "
+              f"{time.perf_counter() - t1:.1f} s ({spawn_s:.1f} s in the "
+              f"ranks)")
+    print(f"  EP phase: {time.perf_counter() - t0:.1f} s")
 
 
 def _pow2(n: int, lo: int) -> int:
@@ -3298,6 +3518,12 @@ def main() -> int:
     tp_err, tp_launches = tp_phase(torch, pa, card, streams1)
     main_err.update({k: max(main_err[k], v) for k, v in tp_err.items()})
 
+    # 4c''. the roofline of a decode dispatch; expert parallelism over
+    # ranks sharing the card
+    roof_launches = roofline_phase(torch, pa, card)
+    tp_launches["fused_decode_attention"] += roof_launches
+    ep_phase(torch, card)
+
     # 4d. the MoE model through the paged path, full width, depth cut
     kimi_launches = kimi_serving(torch, pa, card)
 
@@ -3386,7 +3612,7 @@ def main() -> int:
               f"{per_step:g} per {'verify' if 'verify' in name else 'decode'}"
               f" forward on tinyllama-1.1b, {kimi_launches[name]} on "
               f"kimi-k2's, {tp_launches[name]} on the tensor-parallel runs' "
-              f"ranks")
+              f"ranks and the roofline phase")
         records.append(dict(
             name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
             launches=launches + kimi_launches[name] + tp_launches[name],

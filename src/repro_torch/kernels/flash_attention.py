@@ -10,8 +10,11 @@ the card the bf16 kernel multiplies probabilities rounded to bf16 in p·v
 
 ``flash_attention`` (kernel: ``csrc/flash_attention.cu``) checks its
 arguments, then takes the plain version ``flash_attention_ref`` for
-tensors on the CPU and launches the kernel for tensors on a CUDA device;
-there is no fallback from one to the other.  Unlike the reference's
+tensors on the CPU (or on ``meta``, where nothing runs: the dry run's
+shapes) and launches the kernel for tensors on a CUDA device; there is no
+fallback from one to the other.  Under a ``launch.roofline.CostCounter``
+the forward and the backward report their analytic FLOPs and bytes
+(``kernels.cost``).  Unlike the reference's
 Pallas kernel it takes any S >= 1 (its tiles are its own; the ragged edge
 is masked), and it takes the head-dim pairs it is built for, the same on
 either device: ``HEAD_DIMS``.  ``launches`` counts kernel launches.
@@ -36,7 +39,7 @@ from typing import Dict
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, cost
 
 NEG_INF = -1e30
 
@@ -74,6 +77,10 @@ BWD_BF16_ATOL = 1e-4
 # kernel launches (plain versions are not counted); a forward that keeps
 # the log-sum-exp for the backward counts as a flash_attention launch
 launches: Dict[str, int] = {"flash_attention": 0, "flash_attention_bwd": 0}
+cost.LAUNCHES.append(launches)
+# devices on which a wrapper runs the plain version (on ``meta`` it computes
+# nothing: shapes alone, for the dry run)
+PLAIN = ("cpu", "meta")
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _lib = None
@@ -248,7 +255,7 @@ def _check(q, k, v) -> None:
     if (Dk, v.shape[3]) not in HEAD_DIMS:
         raise ValueError(f"head dims (Dk={Dk}, Dv={v.shape[3]}) not "
                          f"supported ({sorted(HEAD_DIMS)})")
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"no kernel for device {q.device}")
     if q.device.type == "cuda":
         for name, t in named.items():
@@ -302,6 +309,38 @@ def _forward(q, k, v, causal: bool, scale: float, with_lse: bool):
     return out, lse
 
 
+def _pairs(S: int, causal: bool) -> int:
+    return S * (S + 1) // 2 if causal else S * S
+
+
+def _fwd_cost(q, k, v, *, causal: bool = True, scale=None):
+    """(flops, bytes) of a forward (the bound in ``chip_smoke.py``): q.k
+    and p.v over the (query, key) pairs; q, k, v read and the output
+    written once, and the f32 log-sum-exp when a gradient will be taken."""
+    B, S, H, Dk = q.shape
+    KV, Dv = k.shape[2], v.shape[3]
+    flops = 2 * B * H * (Dk + Dv) * _pairs(S, causal)
+    nbytes = q.element_size() * B * S * (H * Dk + KV * Dk + KV * Dv
+                                         + H * Dv)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        nbytes += 4 * B * H * S
+    return flops, nbytes
+
+
+def _bwd_cost(q, k, v, o, lse, do, *, causal: bool = True, scale=None):
+    """(flops, bytes) of a backward (the bound in ``chip_smoke.py``): the
+    five products, q.k, dS.K and dS^T.Q over Dk, dout.v and P^T.dout over
+    Dv; q, k, v, o, dout and lse read, dq, dk and dv written once."""
+    B, S, H, Dk = q.shape
+    KV, Dv = k.shape[2], v.shape[3]
+    flops = 2 * B * H * (3 * Dk + 2 * Dv) * _pairs(S, causal)
+    nbytes = (q.element_size() * B * S * (2 * H * Dk + 2 * KV * Dk
+                                          + 2 * KV * Dv + 2 * H * Dv)
+              + 4 * B * H * S)
+    return flops, nbytes
+
+
+@cost.counted("flash_attention", _fwd_cost)
 def flash_attention(q, k, v, *, causal: bool = True, scale=None):
     """q: (B,S,H,Dk); k: (B,S,KV,Dk); v: (B,S,KV,Dv); contiguous, f32 or
     bf16, (Dk, Dv) in ``HEAD_DIMS`` (in ``BWD_HEAD_DIMS`` when a gradient
@@ -314,11 +353,12 @@ def flash_attention(q, k, v, *, causal: bool = True, scale=None):
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         _check_bwd_dims(q.shape[3], v.shape[3])
         return FlashAttentionFn.apply(q, k, v, causal, scale)
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN:
         return flash_attention_ref(q, k, v, causal=causal, scale=scale)
     return _forward(q, k, v, causal, scale, with_lse=False)[0]
 
 
+@cost.counted("flash_attention_bwd", _bwd_cost)
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                         scale=None):
     """The backward of ``flash_attention``: q, k, v, its output o and the
@@ -342,7 +382,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
         raise ValueError(f"lse must be a contiguous float32 tensor of shape "
                          f"{(B, H, S)} on {q.device}")
     scale = float(scale or Dk ** -0.5)
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN:
         return flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
                                        scale=scale)
     if any(t.data_ptr() % 16 for t in (o, do, lse)):
@@ -377,7 +417,7 @@ class FlashAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, scale: float):
-        if q.device.type == "cpu":
+        if q.device.type in PLAIN:
             # saved for flash_attention_bwd, which takes contiguous tensors
             o = flash_attention_ref(q, k, v, causal=causal,
                                     scale=scale).contiguous()

@@ -26,8 +26,11 @@ of ``CHUNK`` consecutive tokens; rows longer than a chunk are merged from
 f32 partials by the last block of their group (``blocking``).
 
 A wrapper checks its arguments, then takes the plain version for tensors
-on the CPU and launches the kernel for tensors on a CUDA device; there is
-no fallback from one to the other.  ``launches`` counts kernel launches.
+on the CPU (or on ``meta``, where nothing runs: the dry run's shapes) and
+launches the kernel for tensors on a CUDA device; there is no fallback
+from one to the other.  ``launches`` counts kernel launches.  Under a
+``launch.roofline.CostCounter`` a wrapper reports its analytic FLOPs and
+bytes (``kernels.cost``).
 Unlike the reference's functional updates, every append here writes the
 page pools IN PLACE and returns the same tensors.  A launch reads nothing
 back to the host; the chunk counters it uses are per device, so the
@@ -41,13 +44,17 @@ from typing import Dict
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, cost
 
 NEG_INF = -1e30
 
 # kernel launches per wrapper (plain versions are not counted)
 launches: Dict[str, int] = {"paged_attention": 0, "fused_decode_attention": 0,
                             "fused_verify_attention": 0}
+cost.LAUNCHES.append(launches)
+# devices on which a wrapper runs the plain version (on ``meta`` it computes
+# nothing: shapes alone, for the dry run)
+PLAIN = ("cpu", "meta")
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _lib = None
@@ -264,7 +271,7 @@ def _check(q, k_pages, v_pages, block_tables, lens, rows=(), widths=None):
         if tuple(t.shape) != q.shape[:lead] + (KV, D):
             raise ValueError(f"{name} must be {q.shape[:lead] + (KV, D)}, "
                              f"got {tuple(t.shape)}")
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"no kernel for device {q.device}")
 
 
@@ -349,12 +356,59 @@ def _launch(name, q, k_pages, block_tables, scale, ptrs):
     launches[name] += 1
 
 
+def _attend_cost(q, k_pages, block_tables, pairs: int, kv_tokens: int,
+                 rows: int, new_rows: int):
+    """(flops, bytes) of a paged call: ``pairs`` (query row, key) pairs per
+    head, q.k and p.v at 2 * D operations each; the K/V of ``kv_tokens``
+    tokens read once, ``rows`` query rows read and written once,
+    ``new_rows`` K/V rows read and written, and the block tables and
+    lengths read (the kernels' bounds in ``chip_smoke.py``)."""
+    H, D = q.shape[-2:]
+    KV, e = k_pages.shape[2], q.element_size()
+    B = block_tables.shape[0]
+    flops = 4 * H * D * pairs
+    nbytes = (2 * kv_tokens * KV * D * e + 2 * rows * H * D * e
+              + 4 * new_rows * KV * D * e + 4 * block_tables.numel() + 4 * B)
+    return flops, nbytes
+
+
+def _paged_cost(q, k_pages, v_pages, block_tables, ctx_lens, *, scale=None):
+    cap = block_tables.shape[1] * k_pages.shape[1]
+    n = cost.lengths_sum(ctx_lens, cap)
+    return _attend_cost(q, k_pages, block_tables, n, n, q.shape[0], 0)
+
+
+def _decode_cost(q, k_new, v_new, k_pages, v_pages, block_tables, positions,
+                 *, scale=None):
+    cap = block_tables.shape[1] * k_pages.shape[1]
+    n = cost.lengths_sum(positions, cap - 1) + positions.numel()
+    return _attend_cost(q, k_pages, block_tables, n, n, q.shape[0],
+                        q.shape[0])
+
+
+def _verify_cost(q, k_new, v_new, k_pages, v_pages, block_tables, pos0,
+                 widths, *, scale=None):
+    """Row s of lane b (s < widths[b]) attends pos0[b] + s + 1 tokens; a
+    lane's K/V is read once, up to its last live row."""
+    B, W = q.shape[:2]
+    cap = block_tables.shape[1] * k_pages.shape[1]
+    if pos0.device.type == "meta":
+        pairs, kv, live = B * W * cap, B * cap, B * W
+    else:
+        p0, w = pos0.long().cpu(), widths.long().cpu()
+        pairs = int((w * p0 + w * (w + 1) // 2).sum())
+        kv = int(((p0 + w) * (w > 0)).sum())
+        live = int(w.sum())
+    return _attend_cost(q, k_pages, block_tables, pairs, kv, B * W, live)
+
+
+@cost.counted("paged_attention", _paged_cost)
 def paged_attention(q, k_pages, v_pages, block_tables, ctx_lens, *,
                     scale=None):
     """q: (B,H,D); k/v_pages: (P, page, KV, D); block_tables: (B, n_max)
     int32; ctx_lens: (B,) int32, each >= 1.  Returns (B,H,D)."""
     _check(q, k_pages, v_pages, block_tables, ctx_lens)
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN:
         return paged_attention_ref(q, k_pages, v_pages, block_tables,
                                    ctx_lens, scale=scale)
     out = torch.empty_like(q)
@@ -366,6 +420,7 @@ def paged_attention(q, k_pages, v_pages, block_tables, ctx_lens, *,
     return out
 
 
+@cost.counted("fused_decode_attention", _decode_cost)
 def fused_decode_attention(q, k_new, v_new, k_pages, v_pages, block_tables,
                            positions, *, scale=None):
     """Fused decode step: write each sequence's new KV entry into its page
@@ -378,7 +433,7 @@ def fused_decode_attention(q, k_new, v_new, k_pages, v_pages, block_tables,
     are updated in place; only the one target slot per (lane, kv-head) is
     written.  Returns (out (B, H, D), k_pages, v_pages)."""
     _check(q, k_pages, v_pages, block_tables, positions, rows=(k_new, v_new))
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN:
         return fused_decode_attention_ref(q, k_new, v_new, k_pages, v_pages,
                                           block_tables, positions,
                                           scale=scale)
@@ -392,6 +447,7 @@ def fused_decode_attention(q, k_new, v_new, k_pages, v_pages, block_tables,
     return out, k_pages, v_pages
 
 
+@cost.counted("fused_verify_attention", _verify_cost)
 def fused_verify_attention(q, k_new, v_new, k_pages, v_pages, block_tables,
                            pos0, widths, *, scale=None):
     """Speculative verification in one launch: for each lane b, write the
@@ -407,7 +463,7 @@ def fused_verify_attention(q, k_new, v_new, k_pages, v_pages, block_tables,
     in place.  Returns (out (B, W, H, D), k_pages, v_pages)."""
     _check(q, k_pages, v_pages, block_tables, pos0, rows=(k_new, v_new),
            widths=widths)
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN:
         return fused_verify_attention_ref(q, k_new, v_new, k_pages, v_pages,
                                           block_tables, pos0, widths,
                                           scale=scale)

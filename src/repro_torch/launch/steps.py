@@ -1,7 +1,9 @@
 """Step-function builders of the full-sequence model (the reference's
 ``repro.launch.steps``): a training step (``Model.loss``, its gradient by
 autograd, an optimizer update), a prefill step and a one-token serve step.
-The port has no mesh, so they take no sharding context."""
+Each takes the model's context (``launch.sharding.make_ctx``; None for
+none), as the reference's do; the port places no sharding constraint, so
+the reference's ``grad_shardings`` has no counterpart."""
 
 from __future__ import annotations
 
@@ -36,12 +38,12 @@ def value_and_grad(fn, params, *args):
     return value.detach(), tree_map(lambda _: next(grads), params)
 
 
-def make_train_step(cfg: ModelConfig, lr: float = 1e-4):
+def make_train_step(cfg: ModelConfig, ctx=None, lr: float = 1e-4):
     """(model, opt, train_step(params, opt_state, batch) -> (params,
     opt_state, loss)): one ``Model.loss`` gradient and one update of the
     config's optimizer (``get_optimizer``); the update is functional, so
     the params passed in are left as they were."""
-    model = build_model(cfg)
+    model = build_model(cfg, ctx)
     opt = get_optimizer(cfg, lr)
 
     def train_step(params, opt_state, batch):
@@ -52,9 +54,9 @@ def make_train_step(cfg: ModelConfig, lr: float = 1e-4):
     return model, opt, train_step
 
 
-def make_prefill_step(cfg: ModelConfig):
+def make_prefill_step(cfg: ModelConfig, ctx=None):
     """(model, prefill_step(params, batch) -> (logits (B, V), caches))."""
-    model = build_model(cfg)
+    model = build_model(cfg, ctx)
 
     def prefill_step(params, batch):
         return model.prefill(params, batch)
@@ -62,10 +64,10 @@ def make_prefill_step(cfg: ModelConfig):
     return model, prefill_step
 
 
-def make_serve_step(cfg: ModelConfig):
+def make_serve_step(cfg: ModelConfig, ctx=None):
     """(model, serve_step(params, caches, tokens, index) -> (logits (B, V),
     caches)); the caches are written in place."""
-    model = build_model(cfg)
+    model = build_model(cfg, ctx)
 
     def serve_step(params, caches, tokens, index):
         return model.decode_step(params, caches, tokens, index)

@@ -36,7 +36,7 @@ function.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -57,7 +57,8 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 @dataclasses.dataclass
 class Model:
     cfg: ModelConfig
-    # serving-TP collectives of the paged entry points (models.partition)
+    # the mesh context (models.partition): the paged entry points'
+    # serving-TP collectives, the full-sequence forward's expert parallelism
     ctx: AxisCtx = NULL_CTX
     # (lm_head, its version counter, its f32 copy); see _head_f32
     _head: Any = dataclasses.field(default=None, repr=False, compare=False)
@@ -67,11 +68,17 @@ class Model:
         """Random weights (normal, std 0.02, mamba's w_dt 0.1; norms ones)
         on the generator's device, in the model dtype; mamba's dt_bias
         (zeros), A_log (log 1..d_state on every channel) and D (ones) in
-        float32, as the reference's ``_init_layer``."""
+        float32, as the reference's ``_init_layer``.  ``generator`` None
+        gives ``meta`` tensors of the same shapes and dtypes
+        (``param_specs``)."""
         cfg = self.cfg
-        dt, dev = _dtype(cfg), generator.device
+        meta = generator is None
+        dt = _dtype(cfg)
+        dev = torch.device("meta") if meta else generator.device
 
         def dense(*shape, scale=0.02):
+            if meta:
+                return torch.empty(shape, dtype=dt, device=dev)
             w = torch.randn(shape, generator=generator, device=dev,
                             dtype=torch.float32)
             return (w * scale).to(dt)
@@ -81,6 +88,8 @@ class Model:
             drawn one expert at a time: one f32 draw of every expert at
             once would need a temporary twice the leaf's size."""
             w = torch.empty(shape, dtype=dt, device=dev)
+            if meta:
+                return w
             for idx in np.ndindex(*shape[:-2]):
                 w[idx] = dense(*shape[-2:])
             return w
@@ -175,6 +184,11 @@ class Model:
             "lm_head": dense(cfg.d_model, cfg.vocab_padded),
         }
 
+    def param_specs(self) -> Dict[str, Any]:
+        """``meta`` tensors of ``init``'s shapes and dtypes (the reference's
+        ``jax.eval_shape(model.init, key)``)."""
+        return self.init(None)
+
     # ------------------------------------------------------------------
     # Full-sequence forward (the reference's logits / prefill / decode_step)
     # ------------------------------------------------------------------
@@ -232,7 +246,7 @@ class Model:
         cached f32 copy of ``_head_f32``, made outside autograd), through
         ``lm_loss``."""
         x = self._embed(params, batch, "train")
-        x, _ = stack_apply(x, params, self.cfg, "train")
+        x, _ = stack_apply(x, params, self.cfg, "train", ctx=self.ctx)
         x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
         return lm_loss(x, params["lm_head"], batch["labels"],
                        self._loss_mask(batch), self.cfg.vocab_size)
@@ -242,7 +256,7 @@ class Model:
         frontend; labels not needed); one ``flash_attention`` launch per
         attention layer."""
         x = self._embed(params, batch, "train")
-        x, _ = stack_apply(x, params, self.cfg, "train")
+        x, _ = stack_apply(x, params, self.cfg, "train", ctx=self.ctx)
         return self._lm_head(params, x)
 
     def prefill(self, params, batch):
@@ -250,7 +264,8 @@ class Model:
         caches) for the batch (keys by frontend) of S positions; caches as
         ``cache_specs(B, S)``."""
         x = self._embed(params, batch, "prefill")
-        x, caches = stack_apply(x, params, self.cfg, "prefill")
+        x, caches = stack_apply(x, params, self.cfg, "prefill",
+                                ctx=self.ctx)
         return self._lm_head(params, x[:, -1]), caches
 
     def decode_step(self, params, caches, tokens, index):
@@ -264,7 +279,7 @@ class Model:
         x = self._embed(params, {"tokens": tokens}, "decode",
                         index.reshape(1))
         x, caches = stack_apply(x, params, self.cfg, "decode", caches=caches,
-                                index=index)
+                                index=index, ctx=self.ctx)
         return self._lm_head(params, x)[:, 0], caches
 
     def cache_specs(self, B: int, S: int):
@@ -479,7 +494,8 @@ def verify_slabs(widths, W: int, slab: int) -> np.ndarray:
     return out.reshape(n, slab)
 
 
-def build_model(cfg: ModelConfig, ctx: AxisCtx = NULL_CTX) -> Model:
+def build_model(cfg: ModelConfig, ctx: Optional[AxisCtx] = None) -> Model:
     """The model of ``cfg``; ``ctx`` carries the serving-TP collectives of
-    one rank (``launch.sharding.serving_tp_ctx``)."""
-    return Model(cfg, ctx)
+    one rank (``launch.sharding.serving_tp_ctx``) or a mesh context
+    (``launch.sharding.make_ctx``); None is ``NULL_CTX``."""
+    return Model(cfg, NULL_CTX if ctx is None else ctx)

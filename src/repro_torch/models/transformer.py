@@ -40,15 +40,18 @@ FFNS = ("mlp", "moe", "none")
 
 
 def _ffn(x, lp, ffn, cfg, ctx=NULL_CTX):
-    """x plus the layer's FFN of its normed input (none: x).  MoE experts
-    are replicated under serving TP: only the dense MLP takes ``ctx``."""
+    """x plus the layer's FFN of its normed input (none: x).  ``ctx``: the
+    dense MLP's serving-TP collective, MoE's expert parallelism (serving
+    TP replicates the experts; its context asks for no EP)."""
     if ffn == "none":
         return x
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + (mlp(h, lp, ctx) if ffn == "mlp" else moe_apply(h, lp, cfg))
+    return x + (mlp(h, lp, ctx) if ffn == "mlp"
+                else moe_apply(h, lp, cfg, ctx))
 
 
-def layer_apply(x, lp, mixer, ffn, cfg, mode, cache=None, index=None):
+def layer_apply(x, lp, mixer, ffn, cfg, mode, cache=None, index=None,
+                ctx=NULL_CTX):
     """One block of the full-sequence forward; returns (x, cache)."""
     if mixer not in MIXERS:
         raise ValueError(f"the port's full-sequence forward supports "
@@ -59,10 +62,11 @@ def layer_apply(x, lp, mixer, ffn, cfg, mode, cache=None, index=None):
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     mix_out, new_cache = MIXERS[mixer](h, lp, cfg, mode, cache=cache,
                                        index=index)
-    return _ffn(x + mix_out, lp, ffn, cfg), new_cache
+    return _ffn(x + mix_out, lp, ffn, cfg, ctx), new_cache
 
 
-def unit_apply(x, unit_params, cfg, mode, unit_caches=None, index=None):
+def unit_apply(x, unit_params, cfg, mode, unit_caches=None, index=None,
+               ctx=NULL_CTX):
     """One repetition of the unit pattern; returns (x, {key: cache})."""
     new_caches = {}
     for i, (mixer, ffn) in enumerate(cfg.unit_pattern):
@@ -70,7 +74,7 @@ def unit_apply(x, unit_params, cfg, mode, unit_caches=None, index=None):
         cache_i = unit_caches[key] if unit_caches is not None else None
         x, new_caches[key] = layer_apply(x, unit_params[key], mixer, ffn,
                                          cfg, mode, cache=cache_i,
-                                         index=index)
+                                         index=index, ctx=ctx)
     return x, new_caches
 
 
@@ -90,18 +94,20 @@ def _unit_params(units, n: int):
              for key, layer in parts.items()} for u in range(n)]
 
 
-def stack_apply(x, params, cfg, mode, caches=None, index=None):
+def stack_apply(x, params, cfg, mode, caches=None, index=None,
+                ctx=NULL_CTX):
     """The full-sequence stack.  mode "train": returns (x, None); with
     ``cfg.remat``, grad enabled and x or a unit parameter requiring grad,
     each unit is checkpointed.  mode "prefill": returns (x, caches), unit
     caches stacked on a leading num_units dim.  mode "decode": ``caches``
     (as ``Model.init_caches`` makes them) are written in place at
-    ``index`` and returned."""
+    ``index`` and returned.  ``ctx``: the mesh context (MoE's expert
+    parallelism)."""
     new_prefix = []
     for i, (mixer, ffn) in enumerate(cfg.prefix_pattern):
         cache_i = caches["prefix"][i] if caches is not None else None
         x, nc = layer_apply(x, params["prefix"][f"l{i}"], mixer, ffn, cfg,
-                            mode, cache=cache_i, index=index)
+                            mode, cache=cache_i, index=index, ctx=ctx)
         new_prefix.append(nc)
     if mode == "train":
         remat = cfg.remat and torch.is_grad_enabled() and (
@@ -111,16 +117,16 @@ def stack_apply(x, params, cfg, mode, caches=None, index=None):
         for up in _unit_params(params["units"], cfg.num_units):
             if remat:
                 x, _ = checkpoint(unit_apply, x, up, cfg, mode,
-                                  use_reentrant=False)
+                                  ctx=ctx, use_reentrant=False)
             else:
-                x, _ = unit_apply(x, up, cfg, mode)
+                x, _ = unit_apply(x, up, cfg, mode, ctx=ctx)
         return x, None
     per_unit = []
     for u in range(cfg.num_units):
         ucache = (_unit_slice(caches["units"], u) if mode == "decode"
                   else None)
         x, nc = unit_apply(x, _unit_slice(params["units"], u), cfg, mode,
-                           ucache, index)
+                           ucache, index, ctx=ctx)
         per_unit.append(nc)
     if mode == "decode":
         # the unit caches were written in place through their slices

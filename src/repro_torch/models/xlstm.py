@@ -177,13 +177,23 @@ def slstm_apply(x, p, cfg, mode, cache=None, index=None):
         new_cache = cache
     elif mode in ("train", "prefill"):
         pre = gates.permute(1, 2, 0, 3).contiguous()           # (S,H,B,4dh)
-        z0 = torch.zeros((H, B, dh), dtype=torch.float32, device=x.device)
-        carry = (z0, z0, z0, z0)
-        hs = []
-        for t in range(S):
-            carry = _slstm_step(r, carry, pre[t])
-            hs.append(carry[2])
-        out = torch.stack(hs, dim=0).permute(2, 0, 1, 3)       # (B,S,H,dh)
+        if x.device.type == "meta":
+            # nothing runs on meta (the dry run's count): the S steps as
+            # one step over S*B lanes, the loop's ops and FLOPs summed,
+            # each step's incoming state stood in for by its inputs
+            pre_all = pre.transpose(0, 1).reshape(H, S * B, 4 * dh)
+            new = _slstm_step(r, (pre_all[..., :dh],) * 4, pre_all)
+            out = new[2].reshape(H, S, B, dh).permute(2, 1, 0, 3)
+            carry = tuple(t.reshape(H, S, B, dh)[:, -1] for t in new)
+        else:
+            z0 = torch.zeros((H, B, dh), dtype=torch.float32,
+                             device=x.device)
+            carry = (z0, z0, z0, z0)
+            hs = []
+            for t in range(S):
+                carry = _slstm_step(r, carry, pre[t])
+                hs.append(carry[2])
+            out = torch.stack(hs, dim=0).permute(2, 0, 1, 3)   # (B,S,H,dh)
         new_cache = None
         if mode == "prefill":
             new_cache = {k: t.transpose(0, 1).contiguous()

@@ -34,12 +34,22 @@ raises if one did not exit cleanly; the backend also runs it from a
 Each worker imports the caller's main module (the "spawn" method does), so
 a script that builds a tp > 1 backend guards its entry with ``if __name__
 == "__main__":``.
+
+Ranks as a grid: ``run_grid`` runs a function on every rank of a (data,
+model) ``launch.mesh.Mesh`` (expert parallelism, ``models.moe.moe_ep``),
+each rank holding the data group of each axis's line through it
+(``grid_groups``); the groups add ``all_to_all`` to the collectives
+above.  Shared groups get buffers of their own; NCCL
+groups are process groups of their own over one store (written, and not
+run: the GPU machine this port is measured on has one card, and NCCL
+refuses two ranks on one).
 """
 
 from __future__ import annotations
 
 import datetime
 import os
+import pickle
 import shutil
 import sys
 import tempfile
@@ -83,17 +93,38 @@ class _Counted:
         self.seconds = 0.0
 
     def all_reduce(self, x):
-        """The sum of every rank's ``x``."""
+        """The sum of every rank's ``x`` (a group of one: ``x``)."""
+        if self.size == 1:
+            return x
         t0 = time.perf_counter()
         out = self._all_reduce(x)
         self.n += 1
         self.seconds += time.perf_counter() - t0
         return out
 
-    def all_gather(self, x):
-        """Every rank's ``x``, joined on the last dim in rank order."""
+    def all_gather(self, x, dim: int = -1):
+        """Every rank's ``x``, joined on ``dim`` in rank order."""
+        if self.size == 1:
+            return x
         t0 = time.perf_counter()
-        out = self._all_gather(x)
+        if dim % x.dim() == x.dim() - 1:
+            out = self._all_gather(x)
+        else:
+            out = self._all_gather(x.movedim(dim, -1)).movedim(-1, dim)
+        self.n += 1
+        self.seconds += time.perf_counter() - t0
+        return out
+
+    def all_to_all(self, x):
+        """Piece j of ``x`` along dim 0 (its length the group's size) to
+        rank j: row j of the result is what rank j sent this rank."""
+        if x.shape[0] != self.size:
+            raise ValueError(f"all_to_all: dim 0 of {tuple(x.shape)} must "
+                             f"be the group's size {self.size}")
+        if self.size == 1:
+            return x
+        t0 = time.perf_counter()
+        out = self._all_to_all(x.contiguous())
         self.n += 1
         self.seconds += time.perf_counter() - t0
         return out
@@ -121,6 +152,11 @@ class NcclData(_Counted):
         self.pg.allgather([parts], [t]).wait()
         return torch.cat(parts, dim=-1)
 
+    def _all_to_all(self, x):
+        out = torch.empty_like(x)
+        self.pg.alltoall_base(out, x, [], []).wait()
+        return out
+
 
 class SharedData(_Counted):
     """Collectives of ranks on one host's CPUs or one device: each rank
@@ -136,6 +172,7 @@ class SharedData(_Counted):
                  timeout: float):
         super().__init__(rank, size, device)
         self.bufs, self.flags = bufs, flags.numpy()
+        self.slot_bytes = bufs.shape[2]
         self.alive, self.timeout = alive, timeout
         self.epoch = 0
 
@@ -172,7 +209,7 @@ class SharedData(_Counted):
         return slots
 
     def _pieces(self, n: int, width: int, elem: int):
-        step = max(1, SHARED_BYTES // (width * elem))
+        step = max(1, self.slot_bytes // (width * elem))
         return [(a, min(n, a + step)) for a in range(0, n, step)]
 
     def _all_reduce(self, x):
@@ -194,6 +231,16 @@ class SharedData(_Counted):
             torch.cat([s.view(b - a, c) for s in slots], dim=1,
                       out=out[a:b])
         return out.view(*x.shape[:-1], self.size * c)
+
+    def _all_to_all(self, x):
+        n = self.size
+        cols = x.view(n, -1)
+        out = torch.empty_like(cols)
+        for a, b in self._pieces(cols.shape[1], n, cols.element_size()):
+            slots = self._exchange(cols[:, a:b].reshape(-1))
+            for j in range(n):
+                out[j, a:b] = slots[j].view(n, b - a)[self.rank]
+        return out.view(x.shape)
 
 
 def _data_group(rank: int, devices, kind: str, shared, store_path,
@@ -394,3 +441,166 @@ class TPGroup:
                 f"tensor-parallel workers' exit codes {self.exitcodes}"
                 + (f"; rank(s) {forced} terminated after not stopping in "
                    "5 s" if forced else ""))
+
+
+# ---------------------------------------------------------------------------
+# Ranks laid out as a grid (expert parallelism over a (data, model) mesh)
+# ---------------------------------------------------------------------------
+def _line_groups(mesh) -> dict:
+    """Per axis, the rank tuples of its lines (ranks that differ along that
+    axis alone)."""
+    out = {}
+    for axis in mesh.axis_names:
+        lines = sorted({mesh.group(r, axis) for r in range(mesh.size)})
+        out[axis] = lines
+    return out
+
+
+def _grid_shared(mesh, slot_bytes: int) -> dict:
+    """Shared buffers and flags of every line group of ``mesh`` (ranks on
+    the CPU or on one card): {(axis, line index): (bufs, flags)}."""
+    dev = mesh.devices[0]
+    out = {}
+    for axis, lines in _line_groups(mesh).items():
+        for i, line in enumerate(lines):
+            bufs = torch.zeros((2, len(line), slot_bytes), dtype=torch.uint8,
+                               device=dev)
+            if dev.type == "cpu":
+                bufs.share_memory_()
+            flags = torch.zeros(len(line), dtype=torch.int64).share_memory_()
+            out[axis, i] = (bufs, flags)
+    return out
+
+
+def grid_groups(rank: int, mesh, kind: str, shared, store_path, alive,
+                timeout: float) -> dict:
+    """Rank ``rank``'s data groups on ``mesh``: {axis: the ranks along
+    that axis through this one}, each ranked by its index on the line.  "shared" groups take their buffers from ``shared``
+    (``_grid_shared``); NCCL groups are process groups of their own over
+    one ``FileStore`` at ``store_path`` (keys prefixed per line)."""
+    dev = mesh.devices[rank]
+    groups = {}
+    if kind == "nccl":
+        import torch.distributed as dist
+
+        td = datetime.timedelta(seconds=timeout)
+        store = dist.FileStore(store_path, mesh.size)
+        store.set_timeout(td)
+        torch.cuda.set_device(dev)
+    for axis, lines in _line_groups(mesh).items():
+        i = next(i for i, line in enumerate(lines) if rank in line)
+        line = lines[i]
+        r = line.index(rank)
+        if kind == "shared":
+            bufs, flags = shared[axis, i]
+            groups[axis] = SharedData(r, len(line), dev, bufs, flags, alive,
+                                      timeout)
+        else:
+            opts = dist.ProcessGroupNCCL.Options()
+            opts._timeout = td
+            pg = dist.ProcessGroupNCCL(
+                dist.PrefixStore(f"{axis}/{i}", store), r, len(line), opts)
+            groups[axis] = NcclData(pg, r, len(line), dev)
+    return groups
+
+
+def _grid_worker(rank, fn, args, mesh, conn, store_path, kind, timeout,
+                 threads, parent) -> None:
+    """A worker rank of ``run_grid``: join the groups, run ``fn``, send its
+    result back, release the groups and exit."""
+    torch.set_num_threads(threads)
+    try:
+        shared = conn.recv() if kind == "shared" else None
+        groups = grid_groups(rank, mesh, kind, shared, store_path,
+                             lambda: os.getppid() == parent, timeout)
+        # plain pickle bytes: a tensor sent as a shared-memory handle would
+        # die with this process
+        out = pickle.dumps(fn(groups, rank, *args))
+        conn.send(("ok", out))
+        for g in groups.values():
+            g.release()
+        del groups, shared
+    except BaseException:
+        tb = traceback.format_exc()
+        sys.stderr.write(f"grid rank {rank}:\n{tb}")
+        try:
+            conn.send(("error", tb))
+        except (OSError, ValueError):
+            pass
+        sys.stderr.flush()
+        os._exit(1)
+
+
+def run_grid(fn, mesh, args: tuple = (), slot_bytes: int = SHARED_BYTES,
+             timeout: float = None):
+    """Run ``fn(groups, rank, *args)`` on every rank of ``mesh`` (a
+    ``launch.mesh.Mesh`` with devices): this process is rank 0, ranks
+    1..n-1 are workers started with the "spawn" method (``fn`` must be
+    importable by name; its result is sent back through a pipe, so keep it
+    on the host).  ``groups`` are the rank's data groups (``grid_groups``;
+    the transport follows ``data_kind`` of the devices).  Returns (results,
+    exit codes): every rank's result in rank order and each worker's exit
+    code.  Raises if any rank fails, or if a worker exits with another code
+    than 0."""
+    import torch.multiprocessing as mp
+
+    timeout = TIMEOUT if timeout is None else timeout
+    devices = list(mesh.devices)
+    kind = data_kind(devices)
+    shared = _grid_shared(mesh, slot_bytes) if kind == "shared" else None
+    tmp = None if kind == "shared" else tempfile.mkdtemp(prefix="repro-grid-")
+    store = None if tmp is None else os.path.join(tmp, "store")
+    ctx = mp.get_context("spawn")
+    threads = max(1, torch.get_num_threads() // mesh.size)
+    procs, conns = [], []
+    groups = None
+    try:
+        for r in range(1, mesh.size):
+            parent, child = ctx.Pipe()
+            p = ctx.Process(target=_grid_worker, name=f"grid-rank-{r}",
+                            daemon=True,
+                            args=(r, fn, args, mesh, child, store, kind,
+                                  timeout, threads, os.getpid()))
+            p.start()
+            child.close()
+            procs.append(p)
+            conns.append(parent)
+            if shared is not None:
+                parent.send(shared)
+        groups = grid_groups(0, mesh, kind, shared, store,
+                             lambda: all(p.is_alive() for p in procs),
+                             timeout)
+        results = [fn(groups, 0, *args)]
+        for r, (c, p) in enumerate(zip(conns, procs), start=1):
+            t0 = time.monotonic()
+            while not c.poll(0.05):
+                if not p.is_alive() and not c.poll(0):
+                    raise RuntimeError(f"grid rank {r} exited with code "
+                                       f"{p.exitcode}")
+                if time.monotonic() - t0 > timeout:
+                    raise TimeoutError(f"grid rank {r}: no result in "
+                                       f"{timeout:g} s")
+            tag, val = c.recv()
+            if tag == "error":
+                raise RuntimeError(f"grid rank {r} failed:\n{val}")
+            results.append(pickle.loads(val))
+    finally:
+        for p in procs:
+            p.join(10.0)
+            if p.is_alive():
+                p.terminate()
+                p.join(5.0)
+        for c in conns:
+            c.close()
+        if groups is not None:
+            for g in groups.values():
+                g.release()
+        del groups, shared
+        if devices[0].type == "cuda" and kind == "shared":
+            torch.cuda.ipc_collect()
+        if tmp is not None:
+            shutil.rmtree(tmp, ignore_errors=True)
+    codes = [p.exitcode for p in procs]
+    if any(codes):
+        raise RuntimeError(f"grid workers' exit codes {codes}")
+    return results, codes

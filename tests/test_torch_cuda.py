@@ -7,8 +7,11 @@ horizons and speculation, the flash kernel's causal mask, the flash
 backward kernel against its plain version (bitwise repeatable), the reduced
 full-sequence forward and the reduced ``Model.loss`` gradients on the card
 equal to the CPU's (MoE stacks among them), a 2-replica reduced fleet (disaggregated and routed) with merged
-streams equal to one replica's, the migration round trip bitwise, and
-tensor-parallel ranks sharing the card streaming as one rank.
+streams equal to one replica's, the migration round trip bitwise,
+tensor-parallel ranks sharing the card streaming as one rank, the
+roofline counter's decode dispatch and flash launches on the card (not
+opaque), and expert-parallel ranks sharing the card equal to
+``moe_ep_ref``.
 Marked ``cuda``; skips without a GPU.  Run on the GPU machine with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -745,3 +748,90 @@ def test_migration_round_trip_on_card(cuda, dtype):
     b.kv_swap_in(8, tb2)
     assert all(torch.equal(x, y) for x, y in zip(pages(a, ts),
                                                   pages(b, tb2)))
+
+
+# ---------------------------------------------------------------------------
+# the roofline counter on the card, expert parallelism over ranks on it
+# ---------------------------------------------------------------------------
+def test_roofline_decode_step_on_the_card(cuda):
+    """The fused decode kernel reports its cost (not opaque); the counts
+    equal the CPU run's (the same ops, the kernel's formula in place of its
+    plain version's ops)."""
+    from repro_torch.launch.roofline import roofline_decode_step
+
+    kw = dict(batch=8, num_blocks=16, page=8, max_len=32, repeats=2,
+              steps=2)
+    rec = roofline_decode_step(device="cuda", **kw)
+    cpu = roofline_decode_step(device="cpu", **kw)
+    assert not rec["hlo_opaque"] and rec["device"].startswith("cuda")
+    assert rec["kernel_reports"] == {"fused_decode_attention": 1}
+    assert rec["hlo_flops_per_chip"] == cpu["hlo_flops_per_chip"]
+    assert rec["measured_s"] > 0 and rec["multi_measured_s"] > 0
+
+
+def test_counter_sees_the_flash_kernels_launch_and_report(cuda):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.roofline import CostCounter
+
+    q = torch.randn(1, 64, 4, 64, device=cuda, requires_grad=True)
+    k = torch.randn(1, 64, 2, 64, device=cuda, requires_grad=True)
+    v = torch.randn(1, 64, 2, 64, device=cuda, requires_grad=True)
+    with CostCounter() as c:
+        fa.flash_attention(q, k, v).sum().backward()
+    assert c.launched == 2 and c.device_reports == 2 and not c.opaque
+    assert c.kernels == {"flash_attention": 1, "flash_attention_bwd": 1}
+
+
+def _ep_rank_cuda(groups, rank, mesh, cases):
+    from repro_torch.launch.sharding import make_ctx
+    from repro_torch.models.moe import ep_shards, moe_ep
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = []
+    for cfg, x, p, phase, dtp in cases:
+        ctx = make_ctx(cfg, mesh, phase, decode_tp=dtp,
+                       ep_group=groups["model"], fsdp_group=groups["data"])
+        xs, ps = ep_shards(x.to(mesh.devices[rank]),
+                           {k: t.to(mesh.devices[rank])
+                            for k, t in p.items()}, cfg, ctx, rank)
+        st = {}
+        y = moe_ep(xs, ps, cfg, ctx, stats=st)
+        out.append((y.cpu(), int(st["kept"])))
+    return out
+
+
+def test_moe_ep_ranks_sharing_the_card_equal_the_plain_version(cuda):
+    """Reduced deepseek-v2-lite, f32, a (2, 2) grid of ranks on cuda:0:
+    'weights' (dropping at capacity factor 0.5) and decode 'tokens' mode
+    against ``moe_ep_ref`` on the card."""
+    import dataclasses
+
+    from repro_torch.configs.archs import reduced_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.sharding import make_ctx
+    from repro_torch.models.moe import ep_shards, moe_ep_ref
+    from repro_torch.serving.tp import run_grid
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(reduced_config("deepseek-v2-lite-16b"),
+                              capacity_factor=0.5)
+    g = torch.Generator().manual_seed(0)
+    E, d, F = cfg.num_experts, cfg.d_model, cfg.d_ff_expert
+    p = {"router": torch.randn(d, E, generator=g),
+         "w_gate": torch.randn(E, d, F, generator=g) * 0.1,
+         "w_up": torch.randn(E, d, F, generator=g) * 0.1,
+         "w_down": torch.randn(E, F, d, generator=g) * 0.1}
+    cases = [(cfg, torch.randn(2, 16, d, generator=g), p, "prefill", False),
+             (cfg, torch.randn(4, 1, d, generator=g), p, "decode", True)]
+    mesh = make_local_mesh(model=2, data=2, device="cuda:0")
+    results, codes = run_grid(_ep_rank_cuda, mesh, (mesh, cases))
+    assert codes == [0, 0, 0]
+    for i, (_, x, _, phase, dtp) in enumerate(cases):
+        ctx = make_ctx(cfg, mesh, phase, decode_tp=dtp)
+        pc = {k: t.to(cuda) for k, t in p.items()}
+        st = {}
+        y = moe_ep_ref(x.to(cuda), pc, cfg, ctx, stats=st)
+        assert sum(r[i][1] for r in results) == int(st["kept"])
+        for r in range(4):
+            want = ep_shards(y, pc, cfg, ctx, r)[0].cpu()
+            assert torch.allclose(results[r][i][0], want, rtol=0, atol=1e-5)

@@ -35,7 +35,7 @@ VERBATIM = [
     "configs/shapes.py", "configs/__init__.py",
     "cluster/__init__.py", "cluster/engine.py", "cluster/router.py",
     "cluster/autoscaler.py", "launch/dashboard.py",
-    "training/fault_tolerance.py",
+    "training/fault_tolerance.py", "launch/report.py",
 ]
 _IMPORT = re.compile(r"^(\s*)(from|import) repro(?=[.\s])", re.M)
 
@@ -83,7 +83,13 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
             "repro_torch.launch.train",
             "repro_torch.launch.sharding",
             "repro_torch.models.partition",
-            "repro_torch.serving.tp"} <= set(mods)
+            "repro_torch.serving.tp",
+            "repro_torch.kernels.cost",
+            "repro_torch.launch.roofline",
+            "repro_torch.launch.report",
+            "repro_torch.launch.mesh",
+            "repro_torch.launch.dryrun",
+            "repro_torch.obs.validate"} <= set(mods)
     code = textwrap.dedent(f"""
         import importlib, importlib.abc, sys
         class Refuse(importlib.abc.MetaPathFinder):
