@@ -846,8 +846,8 @@ def serve(torch, pa, fused=True, decode_steps=1, scheduler="gmg", spec=0,
           f"decode forwards {be.n_decode_forwards}, verify forwards "
           f"{be.n_verify_forwards}, spec proposed {summ.spec_proposed} "
           f"accepted {summ.spec_accepted}, digest {digest}")
-    print(f"    engine makespan {summ.makespan:.3f} s; backend device "
-          f"{obs.value_of('torch_device_seconds_total'):.3f} s, host "
+    print(f"    engine makespan {summ.makespan:.3f} s; backend dispatch "
+          f"{obs.value_of('torch_dispatch_seconds_total'):.3f} s, host "
           f"{obs.value_of('torch_host_seconds_total'):.3f} s; "
           f"{be.n_decode_dispatches} decode calls, "
           f"{be.n_prefill_dispatches} prefill chunks")
@@ -923,11 +923,10 @@ def fleet_run(torch, pa, cluster, tp=1):
           f"included), launches {counts}, digest {digest}")
     for rid, s in sorted(fs.per_replica.items()):
         role = cluster.roles[rid] if cluster.roles else "mixed"
+        dispatch = obs.value_of("torch_dispatch_seconds_total", replica=rid)
         print(f"    replica {rid} ({role}): routed {fs.routed.get(rid, 0)}, "
               f"migrated in {s.migrated_in} out {s.migrated_out}, finished "
-              f"{s.n_finished}, device "
-              f"{obs.value_of('torch_device_seconds_total', replica=rid):.3f}"
-              f" s, host "
+              f"{s.n_finished}, dispatch {dispatch:.3f} s, host "
               f"{obs.value_of('torch_host_seconds_total', replica=rid):.3f} s")
     check(fs.fleet.n_finished > 0 and fs.goodput_frac > 0,
           f"{label}: no goodput")

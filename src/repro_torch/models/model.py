@@ -48,6 +48,7 @@ from repro_torch.models.layers import lm_loss, rms_norm, sinusoidal_embedding
 from repro_torch.models.partition import NULL_CTX, AxisCtx
 from repro_torch.models.transformer import (FFNS, MIXERS, stack_apply,
                                             stack_apply_paged)
+from repro_torch.obs.spans import NULL_SPANS
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -62,6 +63,10 @@ class Model:
     ctx: AxisCtx = NULL_CTX
     # (lm_head, its version counter, its f32 copy); see _head_f32
     _head: Any = dataclasses.field(default=None, repr=False, compare=False)
+    # wall-clock spans of the paged entry points (obs/spans.py); the
+    # serving backend attaches its recorder here
+    spans: Any = dataclasses.field(default=NULL_SPANS, repr=False,
+                                   compare=False)
 
     # ------------------------------------------------------------------
     def init(self, generator: torch.Generator) -> Dict[str, Any]:
@@ -414,10 +419,37 @@ class Model:
         tokens: (1, C) with rows past ``n`` as padding; start: tokens
         already resident.  No logits: the first decode step re-runs the
         final prompt token.  Writes the pools in place and returns them."""
-        x = params["embed"][tokens.long()]
+        sp = self.spans
+        if sp.on:
+            sid = sp.begin("model.prefill", rows=tokens.shape[1], tokens=n)
+        x = self._embed_paged(params, tokens)
         _, pages = stack_apply_paged(x, params, self.cfg, "prefill", pages,
-                                     block_table, start, n, ctx=self.ctx)
+                                     block_table, start, n, ctx=self.ctx,
+                                     spans=sp)
+        if sp.on:
+            sp.end(sid)
         return pages
+
+    def _embed_paged(self, params, tokens):
+        """The paged entry points' token embeddings, in a ``model.embed``
+        span."""
+        sp = self.spans
+        if sp.on:
+            sid = sp.begin("model.embed")
+        x = params["embed"][tokens.long()]
+        if sp.on:
+            sp.end(sid)
+        return x
+
+    def _head_paged(self, params, x):
+        """``_lm_head`` in a ``model.lm_head`` span."""
+        sp = self.spans
+        if sp.on:
+            sid = sp.begin("model.lm_head")
+        logits = self._lm_head(params, x)
+        if sp.on:
+            sp.end(sid)
+        return logits
 
     def _head_f32(self, head: torch.Tensor) -> torch.Tensor:
         """f32 copy of the lm_head (under serving TP the rank's shard of
@@ -435,11 +467,17 @@ class Model:
         (logits (B, V) f32, pages), the pools written in place.  The
         lm_head product runs in f32 (exact products of the stored values,
         f32 sums), as the reference's ``preferred_element_type=float32``."""
-        x = params["embed"][tokens.long()]
+        sp = self.spans
+        if sp.on:
+            sid = sp.begin("model.decode", rows=tokens.shape[0])
+        x = self._embed_paged(params, tokens)
         x, pages = stack_apply_paged(x, params, self.cfg, "decode", pages,
                                      block_tables, positions, fused=fused,
-                                     ctx=self.ctx)
-        return self._lm_head(params, x)[:, 0], pages
+                                     ctx=self.ctx, spans=sp)
+        logits = self._head_paged(params, x)[:, 0]
+        if sp.on:
+            sp.end(sid)
+        return logits, pages
 
     def verify_paged(self, params, pages, tokens, pos0, widths,
                      block_tables, rows=None):

@@ -33,6 +33,7 @@ from repro_torch.models.mamba import mamba_apply
 from repro_torch.models.moe import moe_apply
 from repro_torch.models.partition import NULL_CTX
 from repro_torch.models.xlstm import mlstm_apply, slstm_apply
+from repro_torch.obs.spans import NULL_SPANS
 
 MIXERS = {"attn": gqa_apply, "mla": mla_apply, "mamba": mamba_apply,
           "mlstm": mlstm_apply, "slstm": slstm_apply}
@@ -138,7 +139,10 @@ def stack_apply(x, params, cfg, mode, caches=None, index=None,
 
 
 def layer_apply_paged(x, lp, mixer, ffn, cfg, mode, pages, tables, pos,
-                      n=None, fused=False, ctx=NULL_CTX):
+                      n=None, fused=False, ctx=NULL_CTX, spans=NULL_SPANS):
+    """One paged block; returns (x, pages).  ``spans`` records a prefill or
+    decode block's norm and attention as ``layer.attn`` and its FFN as
+    ``layer.ffn``."""
     if mixer != "attn":
         raise ValueError(
             f"paged serving supports 'attn' mixers only, got {mixer!r}")
@@ -153,6 +157,8 @@ def layer_apply_paged(x, lp, mixer, ffn, cfg, mode, pages, tables, pos,
                                               ctx)
         return [_ffn(xs + m, lp, ffn, cfg, ctx)
                 for xs, m in zip(x, mix_out)], new_pages
+    if spans.on:
+        sid = spans.begin("layer.attn")
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     if mode == "prefill":
         mix_out, new_pages = gqa_prefill_paged(h, lp, cfg, pages, tables,
@@ -163,27 +169,39 @@ def layer_apply_paged(x, lp, mixer, ffn, cfg, mode, pages, tables, pos,
     else:
         raise ValueError(f"unknown paged mode {mode!r} "
                          "(prefill | decode | verify)")
-    return _ffn(x + mix_out, lp, ffn, cfg, ctx), new_pages
+    if spans.on:
+        spans.end(sid)
+        sid = spans.begin("layer.ffn")
+    x = _ffn(x + mix_out, lp, ffn, cfg, ctx)
+    if spans.on:
+        spans.end(sid)
+    return x, new_pages
 
 
 def stack_apply_paged(x, params, cfg, mode, pages, tables, pos, n=None,
-                      fused=False, ctx=NULL_CTX):
+                      fused=False, ctx=NULL_CTX, spans=NULL_SPANS):
     """mode "prefill": ``tables`` is one sequence's (n_max,) block table,
     ``pos`` the chunk's start offset, ``n`` the real chunk length (rows past
     it are padding).  mode "decode": ``tables`` is (B, n_max), ``pos`` the
     per-sequence write positions (B,).  mode "verify": x is a list of
     slabs (S, 1, d), ``tables`` (B, n_max), ``pos`` the window's
     ``VerifyWindow``.  The pools are written in place.  ``ctx`` carries the
-    serving-TP collectives (``models.partition``).  Returns (x, pages)."""
+    serving-TP collectives (``models.partition``).  ``spans`` records each
+    unit layer's parameter and page views as ``layer.slice``, and the
+    spans of ``layer_apply_paged``.  Returns (x, pages)."""
     for i, (mixer, ffn) in enumerate(cfg.prefix_pattern):
         x, _ = layer_apply_paged(x, params["prefix"][f"l{i}"], mixer, ffn,
                                  cfg, mode, pages["prefix"][i], tables, pos,
-                                 n, fused, ctx)
+                                 n, fused, ctx, spans)
     for u in range(cfg.num_units):
         for i, (mixer, ffn) in enumerate(cfg.unit_pattern):
             key = f"l{i}"
+            if spans.on:
+                sid = spans.begin("layer.slice")
             lp = {name: leaf[u] for name, leaf in params["units"][key].items()}
             up = {name: leaf[u] for name, leaf in pages["units"][key].items()}
+            if spans.on:
+                spans.end(sid)
             x, _ = layer_apply_paged(x, lp, mixer, ffn, cfg, mode, up, tables,
-                                     pos, n, fused, ctx)
+                                     pos, n, fused, ctx, spans)
     return x, pages

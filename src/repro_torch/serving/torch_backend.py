@@ -76,6 +76,7 @@ from repro_torch.models.convert import (from_host, params_from_numpy,
                                         to_host, tree_leaves, tree_map)
 from repro_torch.models.model import build_model, verify_slabs
 from repro_torch.models.partition import NULL_CTX
+from repro_torch.obs.spans import NULL_SPANS
 from repro_torch.serving.backend import Backend, Sampler
 from repro_torch.serving.drafter import NgramDrafter
 
@@ -117,6 +118,8 @@ def _rank_devices(tp: int, device, devices) -> List[torch.device]:
 class PagedTorchBackend(Backend):
     supports_multi_step = True
     supports_spec_decode = True
+    # wall-clock span recorder (obs/spans.py); off unless attached
+    spans = NULL_SPANS
 
     def __init__(self, arch: str = "tinyllama-1.1b", num_blocks: int = 64,
                  page: int = 16, max_len: int = 128, seed: int = 0,
@@ -363,17 +366,25 @@ class PagedTorchBackend(Backend):
             lambda a, p: params_from_numpy(a, self.device, p.dtype),
             mine, self.params)
 
+    def attach_spans(self, spans) -> None:
+        """Record the backend's and its model's spans into ``spans``
+        (``obs/spans.py``; ``NULL_SPANS`` turns the recorder off).  Under
+        tp > 1 rank 0 alone records: the workers keep the default."""
+        self.spans = spans
+        self.model.spans = spans
+
     def attach_obs(self, obs) -> None:
         """Bind the run's metrics registry and pre-resolve the backend's
         instruments.  The engine calls this at construction; until then
         the class-level no-op registry holds."""
         self.obs = obs
-        self._m_device = obs.counter(
-            "torch_device_seconds_total",
-            "wall time inside device calls, synchronisation included")
+        self._m_dispatch = obs.counter(
+            "torch_dispatch_seconds_total",
+            "host wall time inside the backend's dispatch calls (enqueue "
+            "and the host's waits on the device), not device busy time")
         self._m_host = obs.counter(
             "torch_host_seconds_total",
-            "host-side step time outside device calls")
+            "host-side step time outside dispatch calls")
         self._m_pages = obs.counter(
             "torch_pages_touched_total",
             "block-table pages referenced by device calls")
@@ -485,9 +496,15 @@ class PagedTorchBackend(Backend):
         if not q:
             return
         self._pf_queue = []
+        sp = self.spans
+        if sp.on:
+            sid = sp.begin("backend.prefill", rows=sum(c[0] for c in q),
+                           tokens=sum(c[4] for c in q))
         t0 = time.perf_counter()
         self.on_ranks("_prefill_dev", q)
         self._t_acc += time.perf_counter() - t0
+        if sp.on:
+            sp.end(sid)
 
     def _prefill_dev(self, q) -> None:
         for C, toks, start, tab, n in q:
@@ -534,7 +551,12 @@ class PagedTorchBackend(Backend):
             logits, self.pages = self.model.decode_paged(
                 self.params, self.pages, toks, pos, tabs_eff, fused=fused)
             self.n_decode_forwards += 1
+            sp = self.spans
+            if sp.on:
+                sid = sp.begin("sampler")
             nxt = sampler.sample_device(logits, rids, pos)
+            if sp.on:
+                sp.end(sid)
             tok_n.append(nxt)
             act_n.append(active)
             toks = torch.where(active, nxt, toks[:, 0])[:, None]
@@ -560,11 +582,20 @@ class PagedTorchBackend(Backend):
             return (np.zeros((0, n), np.int32), np.zeros((0, n), bool))
         self._flush_prefill()
         t0 = time.perf_counter()
-        tok_n, act_n = self.on_ranks("_decode_dev",
-                                     self._stage_decode(reqs, tables, n), n,
-                                     self.fused, self.sampler)
+        staged = self._stage_decode(reqs, tables, n)
+        sp = self.spans
+        if sp.on:
+            sid = sp.begin("backend.decode", rows=staged[0].shape[0],
+                           lanes=len(reqs))
+        tok_n, act_n = self.on_ranks("_decode_dev", staged, n, self.fused,
+                                     self.sampler)
+        if sp.on:
+            sp.end(sid)
+            sid = sp.begin("backend.sync")
         tok_n = tok_n.cpu().numpy()         # ONE host sync per n tokens
         act_n = act_n.cpu().numpy()
+        if sp.on:
+            sp.end(sid)
         self._t_acc += time.perf_counter() - t0
         return self._take_decode(reqs, n, tok_n, act_n)
 
@@ -574,6 +605,9 @@ class PagedTorchBackend(Backend):
         budget, rids)."""
         nr = len(reqs)
         B = _rows(nr)
+        sp = self.spans
+        if sp.on:
+            sid = sp.begin("backend.stage", rows=B, lanes=nr)
         self._shapes.add(("decode", B, n))
         self._pages_step += sum(len(t) for t in tables) * n
         toks, pos, tabs, rem, rids = self._staging_bufs(B)
@@ -590,6 +624,8 @@ class PagedTorchBackend(Backend):
             tabs[i] = self._padded_table(r.rid, tables[i])
             rem[i] = max(0, min(n, r.true_output_len - r.decoded))
             rids[i] = r.rid & 0x7FFFFFFF
+        if sp.on:
+            sp.end(sid)
         return toks, pos, tabs, rem, rids
 
     def _take_decode(self, reqs: List, n: int, tok_n: np.ndarray,
@@ -860,17 +896,23 @@ class PagedTorchBackend(Backend):
         # verify_tokens is a cost-model hint; wall time already includes
         # any verification work, so it is accepted and ignored here
         self._flush_prefill()
-        # the step's one host sync: drain everything queued above so
-        # _t_acc is honest device time (credited as device seconds)
+        # the step's one host sync: drain everything queued above, so
+        # _t_acc holds the host's time in dispatch calls and its waits
+        sp = self.spans
+        if sp.on:
+            sid = sp.begin("backend.sync")
         t0 = time.perf_counter()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self._t_acc += time.perf_counter() - t0
+        if sp.on:
+            sp.end(sid)
         if self.obs.enabled:
-            # host share = wall since begin_step minus accumulated device
-            # time; metrics only, never fed back into the simulated clock
+            # host share = wall since begin_step minus the time in
+            # dispatch calls; metrics only, never fed back into the
+            # simulated clock
             wall = time.perf_counter() - self._host_t0
-            self._m_device.inc(self._t_acc)
+            self._m_dispatch.inc(self._t_acc)
             self._m_host.inc(max(wall - self._t_acc, 0.0))
             self._m_pages.inc(self._pages_step)
         return self.overhead + self._t_acc

@@ -471,7 +471,7 @@ def test_tp2_streams_identical_with_telemetry(weights):
     s_off, _ = run_obs(False)
     s_on, obs = run_obs(True)
     assert s_on == s_off
-    assert obs.value_of("torch_device_seconds_total") > 0
+    assert obs.value_of("torch_dispatch_seconds_total") > 0
     assert obs.value_of("torch_pages_touched_total") > 0
 
 
