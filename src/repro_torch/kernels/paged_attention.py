@@ -79,6 +79,13 @@ def ticket_sum() -> int:
     return sum(int(t.abs().sum()) for t in _tickets.values())
 
 
+def ticket_buffers() -> tuple:
+    """The ticket counters of every device.  A CUDA graph that launched a
+    kernel holds them, so that the addresses it baked in stay allocated
+    after a wider launch has replaced them."""
+    return tuple(_tickets.values())
+
+
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C entry points of a built ``paged_attention`` library
     and check that its chunk length is ``CHUNK``."""

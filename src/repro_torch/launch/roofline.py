@@ -324,11 +324,13 @@ def roofline_decode_step(arch: str = "tinyllama-1.1b", batch: int = 4,
     page of context (position page-1, a page of its own); the padding lanes
     write the scrap page at position 0, as the backend's do.
 
+    On the card the timed dispatches are replays of the decode forward's
+    CUDA graph (``Model.decode_paged``); the counted one runs eager.
     With ``steps`` > 1 it also profiles the window of ``steps`` tokens
     (``_decode_steps``: forward, on-device sampling and feedback, a Python
-    loop of eager forwards today) and reports ``multi_measured_s``, its
-    per-token time and ``multi_speedup_per_token`` against the single
-    dispatch.
+    loop of forwards, the sampling and feedback eager) and reports
+    ``multi_measured_s``, its per-token time and
+    ``multi_speedup_per_token`` against the single dispatch.
 
     ``device`` "cuda" (the default) needs the card and raises RuntimeError
     without one; "cpu" runs the plain versions of the kernels.  ``reduced``

@@ -43,8 +43,11 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.shapes import Shape
+from repro_torch.kernels import paged_attention as pa
+from repro_torch.models import decode_graphs as dg
 from repro_torch.models.attention import VerifyWindow
-from repro_torch.models.layers import lm_loss, rms_norm, sinusoidal_embedding
+from repro_torch.models.layers import (_inv_freq, lm_loss, rms_norm,
+                                       sinusoidal_embedding)
 from repro_torch.models.partition import NULL_CTX, AxisCtx
 from repro_torch.models.transformer import (FFNS, MIXERS, stack_apply,
                                             stack_apply_paged)
@@ -67,6 +70,18 @@ class Model:
     # serving backend attaches its recorder here
     spans: Any = dataclasses.field(default=NULL_SPANS, repr=False,
                                    compare=False)
+    # CUDA graphs of the decode forward, one per padded shape
+    # (models/decode_graphs.py); ``decode_paged`` replays them
+    decode_graphs: dg.DecodeGraphs = dataclasses.field(
+        default_factory=dg.DecodeGraphs, repr=False, compare=False)
+
+    @property
+    def n_decode_graph_captures(self) -> int:
+        return self.decode_graphs.captures
+
+    @property
+    def n_decode_graph_replays(self) -> int:
+        return self.decode_graphs.replays
 
     # ------------------------------------------------------------------
     def init(self, generator: torch.Generator) -> Dict[str, Any]:
@@ -466,18 +481,68 @@ class Model:
         write positions (B,) int32; block_tables (B, n_max) int32.  Returns
         (logits (B, V) f32, pages), the pools written in place.  The
         lm_head product runs in f32 (exact products of the stored values,
-        f32 sums), as the reference's ``preferred_element_type=float32``."""
+        f32 sums), as the reference's ``preferred_element_type=float32``.
+
+        On CUDA at tp=1 (``decode_graphs.usable``) the call replays a CUDA
+        graph of ``_decode_forward`` for its shape (B, n_max, fused): the
+        shape's first call runs eager, its second captures the graph and
+        replays it, later ones replay.  A replay runs the eager forward's
+        kernels at its shapes and in its order, on the same weights and
+        pools, so its logits are bitwise the eager forward's; they are a
+        copy the next call does not overwrite.  New ``params`` or
+        ``pages`` dicts or a changed lm_head drop every graph.  The
+        ``model.decode`` span's ``graphed`` is 1 when a graph computed the
+        logits; a captured call records no spans inside it."""
+        graphs, plan = self.decode_graphs, dg.EAGER
+        if dg.usable(self.ctx, tokens, positions, block_tables):
+            key = (tokens.shape[0], block_tables.shape[1], fused)
+            plan = graphs.plan(key, params, pages, params["lm_head"])
         sp = self.spans
         if sp.on:
-            sid = sp.begin("model.decode", rows=tokens.shape[0])
-        x = self._embed_paged(params, tokens)
-        x, pages = stack_apply_paged(x, params, self.cfg, "decode", pages,
-                                     block_tables, positions, fused=fused,
-                                     ctx=self.ctx, spans=sp)
-        logits = self._head_paged(params, x)[:, 0]
+            sid = sp.begin("model.decode", rows=tokens.shape[0],
+                           graphed=int(plan != dg.EAGER))
+        inputs = (tokens, positions, block_tables)
+        if plan == dg.REPLAY:
+            logits = graphs.replay(key, inputs)
+        elif plan == dg.CAPTURE:
+            logits = self._capture_decode(key, params, pages, fused, inputs)
+        else:
+            logits, pages = self._decode_forward(params, pages, *inputs,
+                                                 fused=fused)
         if sp.on:
             sp.end(sid)
         return logits, pages
+
+    def _decode_forward(self, params, pages, tokens, positions,
+                        block_tables, *, fused: bool):
+        """The eager decode forward of ``decode_paged``."""
+        x = self._embed_paged(params, tokens)
+        x, pages = stack_apply_paged(x, params, self.cfg, "decode", pages,
+                                     block_tables, positions, fused=fused,
+                                     ctx=self.ctx, spans=self.spans)
+        return self._head_paged(params, x)[:, 0], pages
+
+    def _capture_decode(self, key, params, pages, fused: bool, inputs):
+        """Capture ``_decode_forward`` for ``key`` with the span recorder
+        detached, and replay it; returns the call's logits.  The graph
+        holds the f32 head, the ticket counters and the rope table it
+        reads."""
+        cfg = self.cfg
+        self._head_f32(params["lm_head"])       # made outside the graph
+        holds = [self._head, pa.ticket_buffers()]
+        if cfg.positional == "rope":
+            holds.append(_inv_freq(cfg.resolved_head_dim, cfg.rope_theta,
+                                   inputs[1].device))
+
+        def forward(tokens, positions, block_tables):
+            return self._decode_forward(params, pages, tokens, positions,
+                                        block_tables, fused=fused)[0]
+
+        spans, self.spans = self.spans, NULL_SPANS
+        try:
+            return self.decode_graphs.capture(key, forward, inputs, holds)
+        finally:
+            self.spans = spans
 
     def verify_paged(self, params, pages, tokens, pos0, widths,
                      block_tables, rows=None):

@@ -29,6 +29,17 @@ device; lanes whose remaining output runs out switch to the all-scrap
 table.  The host reads the results once per n tokens.  ``decode_batch``
 is ``decode_batch_n(n=1)``, so streams are equal across horizons.
 
+CUDA graphs: on the card at tp=1 each decode forward after the second of
+its padded shape (B lanes, the table's width, fused or not) replays a
+CUDA graph that ``Model.decode_paged`` captured of its eager forward
+(``models/decode_graphs.py``); the first call of a shape runs eager and
+the second captures.  The replay launches the eager forward's kernels at
+its shapes, in its order, on the same weights and pool, so its logits
+are bitwise the eager forward's and the streams do not change.  Prefill,
+verify, the sampler and every call under tp > 1 run eager.  The registry
+counts captures and replays (``torch_decode_graph_captures_total``,
+``torch_decode_graph_replays_total``).
+
 Speculative decoding: ``decode_verify_batch`` drafts up to the granted
 depth per lane (``NgramDrafter`` by default), scores each drafted lane's
 window in one ``Model.verify_paged`` forward (padded to ``ROWS`` lanes;
@@ -388,6 +399,17 @@ class PagedTorchBackend(Backend):
         self._m_pages = obs.counter(
             "torch_pages_touched_total",
             "block-table pages referenced by device calls")
+        self._m_captures = obs.counter(
+            "torch_decode_graph_captures_total",
+            "decode forwards captured as CUDA graphs (Model.decode_paged)")
+        self._m_replays = obs.counter(
+            "torch_decode_graph_replays_total",
+            "decode forwards run as a replay of a CUDA graph")
+        self._graphs_told = self._graph_counts()
+
+    def _graph_counts(self):
+        m = self.model
+        return m.n_decode_graph_captures, m.n_decode_graph_replays
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
@@ -915,4 +937,7 @@ class PagedTorchBackend(Backend):
             self._m_dispatch.inc(self._t_acc)
             self._m_host.inc(max(wall - self._t_acc, 0.0))
             self._m_pages.inc(self._pages_step)
+            told, self._graphs_told = self._graphs_told, self._graph_counts()
+            self._m_captures.inc(self._graphs_told[0] - told[0])
+            self._m_replays.inc(self._graphs_told[1] - told[1])
         return self.overhead + self._t_acc

@@ -10,8 +10,11 @@ equal to the CPU's (MoE stacks among them), a 2-replica reduced fleet (disaggreg
 streams equal to one replica's, the migration round trip bitwise,
 tensor-parallel ranks sharing the card streaming as one rank, the
 roofline counter's decode dispatch and flash launches on the card (not
-opaque), and expert-parallel ranks sharing the card equal to
-``moe_ep_ref``.
+opaque), expert-parallel ranks sharing the card equal to
+``moe_ep_ref``, and the decode forward's CUDA graphs: replays bitwise the
+eager forward, streams equal with graphs and without, graphs dropped and
+captured again for new weights, a replay allocating only its logits, and
+the profiler placing a replay's kernels under its ``cudaGraphLaunch``.
 Marked ``cuda``; skips without a GPU.  Run on the GPU machine with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -835,3 +838,170 @@ def test_moe_ep_ranks_sharing_the_card_equal_the_plain_version(cuda):
         for r in range(4):
             want = ep_shards(y, pc, cfg, ctx, r)[0].cpu()
             assert torch.allclose(results[r][i][0], want, rtol=0, atol=1e-5)
+
+
+# -- the decode forward's CUDA graphs (models/decode_graphs.py) ------------
+def _graph_backend(cuda, arch="tinyllama-1.1b", layers=4, **cfg_kw):
+    """A bf16 backend on the card of ``arch`` reduced, at ``layers``
+    layers."""
+    import dataclasses
+
+    from repro_torch.configs.archs import reduced_config
+    from repro_torch.serving.torch_backend import PagedTorchBackend
+
+    cfg = dataclasses.replace(reduced_config(arch), num_layers=layers,
+                              dtype="bfloat16", **cfg_kw)
+    return PagedTorchBackend(config=cfg, num_blocks=64, page=16, max_len=128,
+                             seed=0, device=cuda)
+
+
+def _graph_inputs(be, B, step):
+    """Decode inputs of B lanes: the first eight live at random positions
+    on tables of their own pages, the rest padding on the scrap table."""
+    import numpy as np
+
+    g = np.random.default_rng(step)
+    toks = g.integers(0, be.cfg.vocab_size, (B, 1)).astype(np.int32)
+    pos = np.zeros(B, np.int32)
+    tabs = np.full((B, be.n_max), be.scrap, np.int32)
+    pages = g.permutation(be.num_blocks)
+    for b in range(8):
+        pos[b] = g.integers(0, be.max_len)
+        tabs[b] = pages[b * be.n_max:(b + 1) * be.n_max]
+    return [be._dev(a) for a in (toks, pos, tabs)]
+
+
+def _pool_clone(pages):
+    from repro_torch.models.convert import tree_map
+    return tree_map(lambda t: t.clone(), pages)
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "kimi-k2-1t-a32b"])
+@pytest.mark.parametrize("B", [64, 128])
+def test_decode_graph_replays_bitwise_the_eager_forward(cuda, arch, B):
+    """Calls of one shape: the first eager, the second captured and
+    replayed, the rest replayed; each call's logits and pools bitwise
+    ``_decode_forward``'s on a copy of the pools (but the scrap page, where
+    the padding lanes' writes race), and the paged launch counter up by the
+    layers on every call."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models.convert import tree_leaves
+
+    be = _graph_backend(cuda, arch)
+    m, L = be.model, be.cfg.num_layers
+    for step in range(4):
+        toks, pos, tabs = _graph_inputs(be, B, step)
+        ref = _pool_clone(be.pages)
+        want, ref = m._decode_forward(be.params, ref, toks, pos, tabs,
+                                      fused=True)
+        before = pa.launches["fused_decode_attention"]
+        got, pages = m.decode_paged(be.params, be.pages, toks, pos, tabs,
+                                    fused=True)
+        torch.cuda.synchronize()
+        assert pages is be.pages and torch.equal(got, want)
+        assert all(torch.equal(a[..., :-1, :, :, :], b[..., :-1, :, :, :])
+                   for a, b in zip(tree_leaves(pages), tree_leaves(ref)))
+        assert pa.launches["fused_decode_attention"] == before + L
+        assert (m.n_decode_graph_captures, m.n_decode_graph_replays) == \
+            (int(step >= 1), step)
+    assert pa.ticket_sum() == 0
+
+
+def test_decode_graphs_serve_the_eager_streams(cuda, monkeypatch):
+    """An engine run streams the same tokens with graphs as with the
+    eager forward forced; the graphed run replays."""
+    from repro_torch.core.baselines import make_scheduler
+    from repro_torch.models import decode_graphs as dg
+    from repro_torch.serving.engine import EngineConfig, ServeEngine
+    from repro_torch.serving.request import Request, SLOSpec
+
+    def streams():
+        be = _graph_backend(cuda)
+        eng = ServeEngine(be, make_scheduler("tempo", use_predictor=False),
+                          EngineConfig(max_batch=4, prefill_budget=32,
+                                       decode_steps=2))
+        eng.load([Request(rid=i + 1, app="chatbot", arrival=0.0,
+                          prompt_len=20 + 7 * i, true_output_len=12,
+                          slo=SLOSpec("throughput", ttlt=1e6))
+                  for i in range(3)], [])
+        fin = eng.run()
+        assert len(fin) == 3
+        return be.model, {r.rid: list(be.generated[r.rid]) for r in fin}
+
+    m, graphed = streams()
+    assert m.n_decode_graph_captures == 1 and m.n_decode_graph_replays > 5
+    monkeypatch.setattr(dg, "usable", lambda *a: False)
+    m, eager = streams()
+    assert m.n_decode_graph_replays == 0
+    assert graphed == eager
+
+
+def test_new_params_drop_the_decode_graphs_and_recapture(cuda):
+    be = _graph_backend(cuda)
+    m = be.model
+    toks, pos, tabs = (a.cpu().numpy() for a in _graph_inputs(be, 64, 0))
+    for _ in range(3):
+        be.decode_logits(toks, pos, tabs)
+    assert m.n_decode_graph_captures == 1 and len(m.decode_graphs.graphs) == 1
+    be.load_params(m.init(torch.Generator(device=cuda).manual_seed(1)))
+    got = be.decode_logits(toks, pos, tabs)         # eager: graphs dropped
+    assert not m.decode_graphs.graphs and m.n_decode_graph_captures == 1
+    ref = _pool_clone(be.pages)
+    args = [be._dev(a) for a in (toks, pos, tabs)]
+    want, _ = m._decode_forward(be.params, ref, *args, fused=True)
+    assert torch.equal(got, want)
+    assert torch.equal(be.decode_logits(toks, pos, tabs), want)   # capture
+    assert torch.equal(be.decode_logits(toks, pos, tabs), want)   # replay
+    assert m.n_decode_graph_captures == 2
+
+
+def test_decode_graph_replay_allocates_only_its_logits(cuda):
+    """A replay makes one allocation, the caller's copy of the logits,
+    and reads the f32 head the eager call made: no head copy (here 8x
+    the logits)."""
+    be = _graph_backend(cuda, d_model=512, num_heads=8, num_kv_heads=2)
+    m = be.model
+    args = _graph_inputs(be, 64, 0)
+    for _ in range(2):
+        m.decode_paged(be.params, be.pages, *args, fused=True)
+    head = m._head[2]
+    torch.cuda.synchronize()
+    stats0 = torch.cuda.memory_stats()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    logits, _ = m.decode_paged(be.params, be.pages, *args, fused=True)
+    torch.cuda.synchronize()
+    stats1 = torch.cuda.memory_stats()
+    assert m.n_decode_graph_replays == 2 and m._head[2] is head
+    assert stats1["allocation.all.allocated"] \
+        - stats0["allocation.all.allocated"] == 1
+    assert torch.cuda.max_memory_allocated() - base <= \
+        logits.numel() * 4 + 512 < head.numel() * 4
+
+
+def test_profiler_sees_a_replay_launch_one_paged_kernel_per_layer(cuda):
+    """Under ``torch.profiler``, one replay's ``paged_kernel`` operations
+    on the device, one per layer, each correlated to the one
+    ``cudaGraphLaunch`` of the call."""
+    from torch.autograd import DeviceType
+
+    be = _graph_backend(cuda)
+    m, L = be.model, be.cfg.num_layers
+    args = _graph_inputs(be, 64, 0)
+    for _ in range(2):
+        m.decode_paged(be.params, be.pages, *args, fused=True)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        m.decode_paged(be.params, be.pages, *args, fused=True)
+        torch.cuda.synchronize()
+    events = prof.events()
+    launch = {e.id: e.name for e in events
+              if e.device_type != DeviceType.CUDA and e.name.startswith("cu")}
+    paged = [e for e in events if e.device_type == DeviceType.CUDA
+             and "paged_kernel" in e.name]
+    assert len(paged) == L
+    assert len({e.id for e in paged}) == 1
+    assert all(launch.get(e.id, "").startswith("cudaGraphLaunch")
+               for e in paged)

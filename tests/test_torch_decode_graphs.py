@@ -1,0 +1,282 @@
+"""The decode forward's CUDA graphs (``models/decode_graphs.py``) on the
+CPU: which calls may take a graph (CUDA inputs at tp=1, outside a capture
+and a dispatch mode), the eager path bitwise ``_decode_forward`` with the
+counters at zero on the CPU, under a TP context and under a cost counter,
+and the graph table's keying, invalidation and launch counts on a stub
+capture, whose graph runs the captured forward again on its own buffers.
+The graphs themselves run on the card (``tests/test_torch_cuda.py``)."""
+
+import dataclasses
+
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)          # parallel test workers share the CPU
+
+import numpy as np  # noqa: E402
+
+from repro_torch.configs.archs import reduced_config  # noqa: E402
+from repro_torch.core.baselines import make_scheduler  # noqa: E402
+from repro_torch.kernels import paged_attention as pa  # noqa: E402
+from repro_torch.launch.roofline import CostCounter  # noqa: E402
+from repro_torch.models import decode_graphs as dg  # noqa: E402
+from repro_torch.models.model import build_model  # noqa: E402
+from repro_torch.models.partition import NULL_CTX, AxisCtx  # noqa: E402
+from repro_torch.obs import MetricsRegistry  # noqa: E402
+from repro_torch.obs.spans import Spans  # noqa: E402
+from repro_torch.serving.engine import EngineConfig, ServeEngine  # noqa: E402
+from repro_torch.serving.request import Request, SLOSpec  # noqa: E402
+from repro_torch.serving.torch_backend import PagedTorchBackend  # noqa: E402
+
+PAGE, N_MAX, POOL = 8, 4, 12
+
+
+class StubGraph:
+    def __init__(self, run):
+        self.run = run
+
+    def replay(self):
+        self.run()
+
+
+def stub_capture(graphs, forward, inputs):
+    """Runs the forward once, as a capture records it; the stub graph's
+    replay runs it again on the same buffers into the same output."""
+    out = forward(*inputs)
+    return StubGraph(lambda: out.copy_(forward(*inputs))), out
+
+
+class CudaLike:
+    """A tensor's stand-in that ``usable`` reads as a CUDA tensor."""
+
+    def __init__(self, t):
+        self.is_cuda, self.dtype = True, t.dtype
+
+
+class Identity:
+    """A TP group of one rank: every collective returns its input."""
+
+    def all_reduce(self, x):
+        return x
+
+    def all_gather(self, x):
+        return x
+
+
+def _on_card(monkeypatch):
+    """``usable`` with its device test passed, every other condition its
+    own."""
+    real = dg.usable
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: False)
+    monkeypatch.setattr(dg, "usable", lambda ctx, *ts: real(
+        ctx, *(CudaLike(t) for t in ts)))
+
+
+@pytest.fixture
+def on_card(monkeypatch):
+    _on_card(monkeypatch)
+
+
+def _model(arch="tinyllama-1.1b", ctx=NULL_CTX, layers=2):
+    cfg = dataclasses.replace(reduced_config(arch), num_layers=layers)
+    m = build_model(cfg, ctx)
+    m.decode_graphs = dg.DecodeGraphs(capture=stub_capture)
+    params = m.init(torch.Generator().manual_seed(0))
+    pages = m.init_paged_caches(POOL, PAGE, "cpu")
+    return m, params, pages
+
+
+def _inputs(B, step):
+    g = np.random.default_rng(step)
+    toks = torch.tensor(g.integers(0, 256, (B, 1)), dtype=torch.int32)
+    pos = torch.tensor(g.integers(0, PAGE * N_MAX, B), dtype=torch.int32)
+    tabs = torch.tensor(g.permutation(POOL - 1)[:N_MAX][None].repeat(B, 0),
+                        dtype=torch.int32)
+    return toks, pos, tabs
+
+
+def _pages_copy(pages):
+    return {"prefix": tuple({k: v.clone() for k, v in p.items()}
+                            for p in pages["prefix"]),
+            "units": {n: {k: v.clone() for k, v in p.items()}
+                      for n, p in pages["units"].items()}}
+
+
+def _equal_pools(a, b):
+    for n, pool in a["units"].items():
+        for k, t in pool.items():
+            assert torch.equal(t, b["units"][n][k])
+
+
+def test_usable_takes_cuda_int32_calls_at_tp1_outside_modes(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: False)
+    t = torch.zeros((4, 1), dtype=torch.int32)
+    cuda = [CudaLike(t)] * 3
+    assert dg.usable(NULL_CTX, *cuda)
+    assert not dg.usable(NULL_CTX, t, t[:, 0], t)          # on the CPU
+    assert not dg.usable(AxisCtx(tp_attn_axis=Identity()), *cuda)
+    assert not dg.usable(NULL_CTX, cuda[0],
+                         CudaLike(t.long()), cuda[0])      # not int32
+    with CostCounter():
+        assert not dg.usable(NULL_CTX, *cuda)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: True)
+    assert not dg.usable(NULL_CTX, *cuda)
+
+
+@pytest.mark.parametrize("case", ["cpu", "tp_ctx", "cost_counter"])
+def test_eager_paths_equal_the_forward_and_count_nothing(case, request):
+    """Three calls of one shape, which would capture and replay if graphs
+    engaged, give ``_decode_forward``'s logits and pools bitwise."""
+    ctx = NULL_CTX
+    if case != "cpu":
+        request.getfixturevalue("on_card")
+    if case == "tp_ctx":
+        ctx = AxisCtx(tp_attn_axis=Identity(), tp_mlp_axis=Identity(),
+                      tp_vocab_axis=Identity())
+    m, params, pages = _model(ctx=ctx)
+    ref = _pages_copy(pages)
+    for step in range(3):
+        toks, pos, tabs = _inputs(8, step)
+        want, ref = m._decode_forward(params, ref, toks, pos, tabs,
+                                      fused=True)
+        if case == "cost_counter":
+            with CostCounter():
+                got, pages = m.decode_paged(params, pages, toks, pos, tabs,
+                                            fused=True)
+        else:
+            got, pages = m.decode_paged(params, pages, toks, pos, tabs,
+                                        fused=True)
+        assert torch.equal(got, want)
+    _equal_pools(pages, ref)
+    assert m.n_decode_graph_captures == m.n_decode_graph_replays == 0
+    assert not m.decode_graphs.graphs and not m.decode_graphs.seen
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "kimi-k2-1t-a32b"])
+def test_stub_graphs_capture_on_the_second_call_and_replay_bitwise(on_card,
+                                                                   arch):
+    m, params, pages = _model(arch)
+    plain = build_model(m.cfg)
+    sp = Spans()
+    m.spans = sp
+    ref = _pages_copy(pages)
+    for step in range(4):
+        toks, pos, tabs = _inputs(8, step)
+        want, ref = plain._decode_forward(params, ref, toks, pos, tabs,
+                                          fused=True)
+        got, out = m.decode_paged(params, pages, toks, pos, tabs, fused=True)
+        assert out is pages and torch.equal(got, want)
+        # the caller's logits are a copy the next call does not overwrite
+        g = m.decode_graphs.graphs.get((8, N_MAX, True))
+        assert g is None or got.data_ptr() != g.logits.data_ptr()
+    _equal_pools(pages, ref)
+    assert (m.n_decode_graph_captures, m.n_decode_graph_replays) == (1, 3)
+    dec = sp.select("model.decode")
+    assert [sp.attrs[i]["graphed"] for i in dec] == [0, 1, 1, 1]
+    # the eager call records spans inside its forward, the capture none
+    # (the stub's replays run the forward again in Python, and record)
+    inner = {sp.parent[i] for i in range(len(sp))
+             if sp.name[i] == "model.lm_head"}
+    assert dec[0] in inner and dec[1] not in inner
+    # the graph holds the f32 head it reads, and the rope table
+    holds = m.decode_graphs.graphs[(8, N_MAX, True)].holds
+    assert holds[0] is m._head and holds[2].dtype == torch.float32
+
+
+def test_stub_table_keys_by_shape_and_drops_on_new_params_pages_or_head(
+        monkeypatch):
+    def capture(graphs, forward, inputs):
+        out = forward(*inputs)
+        return StubGraph(lambda: torch.mul(inputs[0], 2, out=out)), out
+
+    t = dg.DecodeGraphs(capture=capture)
+    head = torch.zeros(3)
+    params, pages = {"lm_head": head}, {}
+    launches = pa.launches
+    monkeypatch.setitem(launches, "fused_decode_attention", 0)
+
+    def forward(x):             # an eager forward of five kernel launches
+        launches["fused_decode_attention"] += 5
+        return x * 2
+
+    def step(key, x, params=params, pages=pages, head=head):
+        plan = t.plan(key, params, pages, head)
+        if plan == dg.REPLAY:
+            return plan, t.replay(key, (x,))
+        if plan == dg.CAPTURE:
+            return plan, t.capture(key, forward, (x,), holds=())
+        return plan, forward(x)
+
+    x = torch.arange(4.0)
+    assert [step("a", x)[0] for _ in range(3)] == \
+        [dg.EAGER, dg.CAPTURE, dg.REPLAY]
+    assert step("b", x)[0] == dg.EAGER and step("a", x)[0] == dg.REPLAY
+    # the replay reads the caller's input and hands out a copy
+    before = launches["fused_decode_attention"]
+    plan, y = step("a", x + 1)
+    assert plan == dg.REPLAY and torch.equal(y, 2 * (x + 1))
+    assert launches["fused_decode_attention"] == before + 5
+    assert y.data_ptr() != t.graphs["a"].logits.data_ptr()
+    # the capture's own launches were taken back: one forward, counted once
+    before = launches["fused_decode_attention"]
+    assert step("b", x)[0] == dg.CAPTURE
+    assert launches["fused_decode_attention"] == before + 5
+    assert t.captures == 2 and t.replays == 5 and set(t.graphs) == {"a", "b"}
+    # new params, new pages, another head or a head changed in place: every
+    # graph and every key seen goes, and the call runs eager
+    head2 = torch.zeros(3)
+    for kw in ({"params": {"lm_head": head}}, {"pages": {}},
+               {"head": head2}):
+        new = dict(params=params, pages=pages, head=head)
+        new.update(kw)
+        assert step("a", x, **new)[0] == dg.EAGER
+        assert set(t.graphs) == set() and t.seen == {"a"}
+        assert [step("a", x)[0] for _ in range(3)] == \
+            [dg.EAGER, dg.CAPTURE, dg.REPLAY]
+    head.add_(1)
+    assert step("a", x)[0] == dg.EAGER and not t.graphs
+    assert t.owner[3] == head._version
+
+
+def _req(rid, prompt, out):
+    return Request(rid=rid, app="chatbot", arrival=0.0, prompt_len=prompt,
+                   true_output_len=out, slo=SLOSpec("throughput", ttlt=1e6))
+
+
+def _served():
+    be = PagedTorchBackend(page=16, device="cpu", num_blocks=8, max_len=64,
+                           seed=0)
+    be.model.decode_graphs = dg.DecodeGraphs(capture=stub_capture)
+    reg = MetricsRegistry()
+    eng = ServeEngine(be, make_scheduler("tempo", use_predictor=False),
+                      EngineConfig(max_batch=2, prefill_budget=16),
+                      obs=reg)
+    eng.load([_req(i + 1, 30, 10) for i in range(2)], [])
+    fin = eng.run()
+    assert len(fin) == 2
+    return be, reg, {r.rid: list(be.generated[r.rid]) for r in fin}
+
+
+def test_stub_graphs_serve_the_eager_streams_and_are_counted(monkeypatch):
+    _, reg, eager = _served()
+    assert reg.value_of("torch_decode_graph_replays_total") == 0
+    _on_card(monkeypatch)
+    be, reg, graphed = _served()
+    assert graphed == eager
+    m = be.model
+    assert m.n_decode_graph_captures == 1 and m.n_decode_graph_replays > 5
+    assert reg.value_of("torch_decode_graph_captures_total") == 1
+    assert reg.value_of("torch_decode_graph_replays_total") == \
+        m.n_decode_graph_replays
+    # new weights drop the graphs: the next call runs eager, then captures
+    be.load_params(m.init(torch.Generator().manual_seed(1)))
+    toks, pos, _ = (a.numpy() for a in _inputs(64, 0))
+    tabs = np.full((64, be.n_max), be.scrap, np.int32)
+    replays = m.n_decode_graph_replays
+    for _ in range(3):
+        be.decode_logits(toks, pos, tabs)
+    assert m.n_decode_graph_captures == 2
+    assert m.n_decode_graph_replays == replays + 2
