@@ -150,7 +150,8 @@ def paged_kv_append(k_pages, v_pages, k_new, v_new, block_table, start,
     k_new/v_new: (C, KV, D) entries for token positions start..start+C-1 of
     ONE sequence whose pages are ``block_table`` ((n_max,) int32).  ``n``
     marks how many of the C rows are real; rows past it go to
-    ``scrap_page`` (default P-1), slot 0.  Returns (k_pages, v_pages)."""
+    ``scrap_page`` (default P-1), slot 0.  ``start`` and ``n`` are ints or
+    0-d int tensors on the pages' device.  Returns (k_pages, v_pages)."""
     C = k_new.shape[0]
     page = k_pages.shape[1]
     rows = torch.arange(C, device=k_pages.device)

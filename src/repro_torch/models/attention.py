@@ -178,16 +178,18 @@ def mla_apply(x, p, cfg, mode, cache=None, index=None):
     return out, new_cache
 
 
-def gqa_prefill_paged(x, p, cfg, pages, block_table, start: int, n: int,
+def gqa_prefill_paged(x, p, cfg, pages, block_table, start, n,
                       ctx=NULL_CTX):
     """Chunked-prefill attention for ONE sequence against paged KV.
 
     x: (1, C, D) chunk hidden states; rows at or past ``n`` are padding,
     their KV goes to the scrap page and their outputs are discarded by the
     caller.  ``block_table``: (n_max,) pages owned by the sequence.
-    ``start``: tokens already resident.  The chunk's KV is scattered first,
-    then its queries attend over the gathered table under a causal
-    position mask, in f32.  Returns (out (1, C, D), pages)."""
+    ``start``: tokens already resident.  ``start`` and ``n`` are ints or
+    0-d int tensors on x's device (the same ops either way).  The chunk's
+    KV is scattered first, then its queries attend over the gathered table
+    under a causal position mask, in f32.  Returns (out (1, C, D),
+    pages)."""
     B, C, D = x.shape
     H, KV, Dh = p["wq"].shape[1], p["wk"].shape[1], p["wq"].shape[2]
     G = H // KV

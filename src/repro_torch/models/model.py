@@ -58,6 +58,10 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
+def _scalar(v: int, device) -> torch.Tensor:
+    return torch.full((), v, dtype=torch.int64, device=device)
+
+
 @dataclasses.dataclass
 class Model:
     cfg: ModelConfig
@@ -70,18 +74,27 @@ class Model:
     # serving backend attaches its recorder here
     spans: Any = dataclasses.field(default=NULL_SPANS, repr=False,
                                    compare=False)
-    # CUDA graphs of the decode forward, one per padded shape
-    # (models/decode_graphs.py); ``decode_paged`` replays them
+    # CUDA graphs of the paged decode and prefill forwards, one per call
+    # shape (models/decode_graphs.py); ``decode_paged`` and
+    # ``prefill_paged`` replay them
     decode_graphs: dg.DecodeGraphs = dataclasses.field(
         default_factory=dg.DecodeGraphs, repr=False, compare=False)
 
     @property
     def n_decode_graph_captures(self) -> int:
-        return self.decode_graphs.captures
+        return self.decode_graphs.captures["decode"]
 
     @property
     def n_decode_graph_replays(self) -> int:
-        return self.decode_graphs.replays
+        return self.decode_graphs.replays["decode"]
+
+    @property
+    def n_prefill_graph_captures(self) -> int:
+        return self.decode_graphs.captures["prefill"]
+
+    @property
+    def n_prefill_graph_replays(self) -> int:
+        return self.decode_graphs.replays["prefill"]
 
     # ------------------------------------------------------------------
     def init(self, generator: torch.Generator) -> Dict[str, Any]:
@@ -432,17 +445,56 @@ class Model:
         """Append one prompt chunk's KV for a single sequence.
 
         tokens: (1, C) with rows past ``n`` as padding; start: tokens
-        already resident.  No logits: the first decode step re-runs the
-        final prompt token.  Writes the pools in place and returns them."""
+        already resident; block_table: (n_max,).  No logits: the first
+        decode step re-runs the final prompt token.  Writes the pools in
+        place and returns them.
+
+        ``start`` and ``n`` are host ints; the forward takes them as 0-d
+        device tensors, so one forward serves every chunk of its shape.
+        On CUDA at tp=1 (``decode_graphs.usable``) the call replays a CUDA
+        graph of ``_prefill_forward`` for its shape (C, n_max), with the
+        rule of ``decode_paged``: the shape's first call runs eager, its
+        second captures the graph and replays it, later ones replay, and
+        new ``params`` or ``pages`` dicts or a changed lm_head drop every
+        graph.  A replay writes the pages bitwise as the eager forward
+        does.  The ``model.prefill`` span's ``graphed`` is 1 when a graph
+        wrote them; a captured call records no spans inside it."""
+        graphs, plan = self.decode_graphs, dg.EAGER
+        if dg.usable(self.ctx, tokens, block_table):
+            key = ("prefill", tokens.shape[1], block_table.shape[0])
+            plan = graphs.plan(key, params, pages, params["lm_head"])
         sp = self.spans
         if sp.on:
-            sid = sp.begin("model.prefill", rows=tokens.shape[1], tokens=n)
+            sid = sp.begin("model.prefill", rows=tokens.shape[1], tokens=n,
+                           graphed=int(plan != dg.EAGER))
+        if plan == dg.REPLAY:
+            graphs.replay(key, (tokens, start, block_table, n))
+        else:
+            dev = tokens.device
+            # filled on the device: a host-to-device copy would wait on it
+            inputs = (tokens, _scalar(start, dev), block_table,
+                      _scalar(n, dev))
+            if plan == dg.CAPTURE:
+                def forward(tokens, start, block_table, n):
+                    self._prefill_forward(params, pages, tokens, start,
+                                          block_table, n)
+
+                self._capture(key, forward, inputs, self._rope_holds(dev))
+            else:
+                self._prefill_forward(params, pages, *inputs)
+        if sp.on:
+            sp.end(sid)
+        return pages
+
+    def _prefill_forward(self, params, pages, tokens, start, block_table,
+                         n):
+        """The eager forward of ``prefill_paged``: ``start`` and ``n`` are
+        0-d int64 tensors on the tokens' device, as ``prefill_paged``
+        passes them, or host ints (the same ops either way)."""
         x = self._embed_paged(params, tokens)
         _, pages = stack_apply_paged(x, params, self.cfg, "prefill", pages,
                                      block_table, start, n, ctx=self.ctx,
-                                     spans=sp)
-        if sp.on:
-            sp.end(sid)
+                                     spans=self.spans)
         return pages
 
     def _embed_paged(self, params, tokens):
@@ -495,7 +547,7 @@ class Model:
         logits; a captured call records no spans inside it."""
         graphs, plan = self.decode_graphs, dg.EAGER
         if dg.usable(self.ctx, tokens, positions, block_tables):
-            key = (tokens.shape[0], block_tables.shape[1], fused)
+            key = ("decode", tokens.shape[0], block_tables.shape[1], fused)
             plan = graphs.plan(key, params, pages, params["lm_head"])
         sp = self.spans
         if sp.on:
@@ -505,7 +557,18 @@ class Model:
         if plan == dg.REPLAY:
             logits = graphs.replay(key, inputs)
         elif plan == dg.CAPTURE:
-            logits = self._capture_decode(key, params, pages, fused, inputs)
+            # the graph holds the f32 head (made here, outside it), the
+            # ticket counters and the rope table it reads
+            self._head_f32(params["lm_head"])
+
+            def forward(tokens, positions, block_tables):
+                return self._decode_forward(params, pages, tokens, positions,
+                                            block_tables, fused=fused)[0]
+
+            logits = self._capture(
+                key, forward, inputs,
+                [self._head, pa.ticket_buffers()]
+                + self._rope_holds(tokens.device))
         else:
             logits, pages = self._decode_forward(params, pages, *inputs,
                                                  fused=fused)
@@ -522,22 +585,17 @@ class Model:
                                      ctx=self.ctx, spans=self.spans)
         return self._head_paged(params, x)[:, 0], pages
 
-    def _capture_decode(self, key, params, pages, fused: bool, inputs):
-        """Capture ``_decode_forward`` for ``key`` with the span recorder
-        detached, and replay it; returns the call's logits.  The graph
-        holds the f32 head, the ticket counters and the rope table it
-        reads."""
+    def _rope_holds(self, device) -> list:
+        """The rope table a graph of this model's forward reads, in a list
+        (empty without rope)."""
         cfg = self.cfg
-        self._head_f32(params["lm_head"])       # made outside the graph
-        holds = [self._head, pa.ticket_buffers()]
-        if cfg.positional == "rope":
-            holds.append(_inv_freq(cfg.resolved_head_dim, cfg.rope_theta,
-                                   inputs[1].device))
+        if cfg.positional != "rope":
+            return []
+        return [_inv_freq(cfg.resolved_head_dim, cfg.rope_theta, device)]
 
-        def forward(tokens, positions, block_tables):
-            return self._decode_forward(params, pages, tokens, positions,
-                                        block_tables, fused=fused)[0]
-
+    def _capture(self, key, forward, inputs, holds):
+        """Capture ``forward`` for ``key`` with the span recorder detached,
+        and replay it; returns the call's output (decode's logits)."""
         spans, self.spans = self.spans, NULL_SPANS
         try:
             return self.decode_graphs.capture(key, forward, inputs, holds)

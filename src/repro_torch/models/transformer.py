@@ -182,8 +182,9 @@ def stack_apply_paged(x, params, cfg, mode, pages, tables, pos, n=None,
                       fused=False, ctx=NULL_CTX, spans=NULL_SPANS):
     """mode "prefill": ``tables`` is one sequence's (n_max,) block table,
     ``pos`` the chunk's start offset, ``n`` the real chunk length (rows past
-    it are padding).  mode "decode": ``tables`` is (B, n_max), ``pos`` the
-    per-sequence write positions (B,).  mode "verify": x is a list of
+    it are padding), each an int or a 0-d int tensor.  mode "decode":
+    ``tables`` is (B, n_max), ``pos`` the per-sequence write positions
+    (B,).  mode "verify": x is a list of
     slabs (S, 1, d), ``tables`` (B, n_max), ``pos`` the window's
     ``VerifyWindow``.  The pools are written in place.  ``ctx`` carries the
     serving-TP collectives (``models.partition``).  ``spans`` records each

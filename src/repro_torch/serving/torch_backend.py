@@ -31,14 +31,19 @@ is ``decode_batch_n(n=1)``, so streams are equal across horizons.
 
 CUDA graphs: on the card at tp=1 each decode forward after the second of
 its padded shape (B lanes, the table's width, fused or not) replays a
-CUDA graph that ``Model.decode_paged`` captured of its eager forward
+CUDA graph that ``Model.decode_paged`` captured of its eager forward, and
+each prefill call after the second of its shape (``ROWS`` tokens, the
+table's width) one that ``Model.prefill_paged`` captured, the chunk's
+start and length filled into the graph's buffers on the device
 (``models/decode_graphs.py``); the first call of a shape runs eager and
 the second captures.  The replay launches the eager forward's kernels at
-its shapes, in its order, on the same weights and pool, so its logits
-are bitwise the eager forward's and the streams do not change.  Prefill,
-verify, the sampler and every call under tp > 1 run eager.  The registry
+its shapes, in its order, on the same weights and pool, so its logits and
+prompt KV are bitwise the eager forward's and the streams do not change.
+Verify, the sampler and every call under tp > 1 run eager.  The registry
 counts captures and replays (``torch_decode_graph_captures_total``,
-``torch_decode_graph_replays_total``).
+``torch_decode_graph_replays_total``,
+``torch_prefill_graph_captures_total``,
+``torch_prefill_graph_replays_total``).
 
 Speculative decoding: ``decode_verify_batch`` drafts up to the granted
 depth per lane (``NgramDrafter`` by default), scores each drafted lane's
@@ -83,6 +88,7 @@ from repro_torch.configs.base import ModelConfig, get_config
 from repro_torch.launch.sharding import (paged_page_specs, paged_param_specs,
                                          paged_tp_plan, serving_tp_ctx,
                                          shard_tree)
+from repro_torch.models import decode_graphs as dg
 from repro_torch.models.convert import (from_host, params_from_numpy,
                                         to_host, tree_leaves, tree_map)
 from repro_torch.models.model import build_model, verify_slabs
@@ -399,17 +405,18 @@ class PagedTorchBackend(Backend):
         self._m_pages = obs.counter(
             "torch_pages_touched_total",
             "block-table pages referenced by device calls")
-        self._m_captures = obs.counter(
-            "torch_decode_graph_captures_total",
-            "decode forwards captured as CUDA graphs (Model.decode_paged)")
-        self._m_replays = obs.counter(
-            "torch_decode_graph_replays_total",
-            "decode forwards run as a replay of a CUDA graph")
+        self._m_graphs = [
+            (obs.counter(f"torch_{kind}_graph_captures_total",
+                         f"{kind} forwards captured as CUDA graphs "
+                         f"(Model.{kind}_paged)"),
+             obs.counter(f"torch_{kind}_graph_replays_total",
+                         f"{kind} forwards run as a replay of a CUDA graph"))
+            for kind in dg.KINDS]
         self._graphs_told = self._graph_counts()
 
     def _graph_counts(self):
-        m = self.model
-        return m.n_decode_graph_captures, m.n_decode_graph_replays
+        g = self.model.decode_graphs
+        return [(g.captures[kind], g.replays[kind]) for kind in dg.KINDS]
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
@@ -938,6 +945,7 @@ class PagedTorchBackend(Backend):
             self._m_host.inc(max(wall - self._t_acc, 0.0))
             self._m_pages.inc(self._pages_step)
             told, self._graphs_told = self._graphs_told, self._graph_counts()
-            self._m_captures.inc(self._graphs_told[0] - told[0])
-            self._m_replays.inc(self._graphs_told[1] - told[1])
+            for ms, was, now in zip(self._m_graphs, told, self._graphs_told):
+                for c, a, b in zip(ms, was, now):
+                    c.inc(b - a)
         return self.overhead + self._t_acc

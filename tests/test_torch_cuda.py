@@ -11,10 +11,13 @@ streams equal to one replica's, the migration round trip bitwise,
 tensor-parallel ranks sharing the card streaming as one rank, the
 roofline counter's decode dispatch and flash launches on the card (not
 opaque), expert-parallel ranks sharing the card equal to
-``moe_ep_ref``, and the decode forward's CUDA graphs: replays bitwise the
+``moe_ep_ref``, the decode forward's CUDA graphs: replays bitwise the
 eager forward, streams equal with graphs and without, graphs dropped and
 captured again for new weights, a replay allocating only its logits, and
-the profiler placing a replay's kernels under its ``cudaGraphLaunch``.
+the profiler placing a replay's kernels under its ``cudaGraphLaunch``;
+and the prefill forward's: replays writing the eager forward's pages
+across chunkings, streams equal with graphs and without, a replay
+allocating nothing.
 Marked ``cuda``; skips without a GPU.  Run on the GPU machine with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -1005,3 +1008,110 @@ def test_profiler_sees_a_replay_launch_one_paged_kernel_per_layer(cuda):
     assert len({e.id for e in paged}) == 1
     assert all(launch.get(e.id, "").startswith("cudaGraphLaunch")
                for e in paged)
+
+
+# -- the prefill forward's CUDA graphs ---------------------------------------
+def _prompt_chunks(be, chunking, step):
+    """A prompt of sum(chunking) tokens on a table of its own pages, cut
+    into 64-row calls of ``chunking``: (tokens, start, n) each, and the
+    table."""
+    import numpy as np
+
+    from repro_torch.serving.torch_backend import ROWS
+
+    g = np.random.default_rng(step)
+    prompt = g.integers(0, be.cfg.vocab_size, sum(chunking)).astype(np.int32)
+    tab = be._dev(g.permutation(be.num_blocks)[:be.n_max].astype(np.int32))
+    calls, start = [], 0
+    for n in chunking:
+        toks = np.zeros((1, ROWS), np.int32)
+        toks[0, :n] = prompt[start:start + n]
+        calls.append((be._dev(toks), start, n))
+        start += n
+    return calls, tab
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "kimi-k2-1t-a32b"])
+def test_prefill_graph_replays_write_the_eager_pages_across_chunkings(
+        cuda, arch):
+    """One prompt written under three chunkings on the backend's pool:
+    the first call eager, the second captured and replayed, the rest
+    replayed; after each chunking the pools bitwise the eager int-argument
+    forward's on a copy (but the scrap page, where padding rows' writes
+    race), and the prompt's KV bitwise the same under every chunking."""
+    from repro_torch.models.convert import tree_leaves
+
+    be = _graph_backend(cuda, arch)
+    m = be.model
+    prompt_kv = []
+    for chunking in ([64, 56], [30, 50, 40], [64, 17, 39]):
+        calls, tab = _prompt_chunks(be, chunking, 0)
+        ref = _pool_clone(be.pages)
+        for toks, start, n in calls:
+            ref = m._prefill_forward(be.params, ref, toks, start, tab, n)
+            pages = m.prefill_paged(be.params, be.pages, toks, start, tab, n)
+            assert pages is be.pages
+        torch.cuda.synchronize()
+        assert all(torch.equal(a[..., :-1, :, :, :], b[..., :-1, :, :, :])
+                   for a, b in zip(tree_leaves(be.pages), tree_leaves(ref)))
+        used = tab[:-(-120 // be.page)].long()
+        prompt_kv.append([t[..., used, :, :, :].clone()
+                          for t in tree_leaves(be.pages)])
+    assert (m.n_prefill_graph_captures, m.n_prefill_graph_replays) == (1, 7)
+    assert m.n_decode_graph_captures == m.n_decode_graph_replays == 0
+    for kv in prompt_kv[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(prompt_kv[0], kv))
+
+
+def test_prefill_graphs_serve_the_eager_streams(cuda, monkeypatch):
+    """An engine run of prompts of several chunks streams the same tokens
+    with graphs as with the eager forwards forced; every prefill call of
+    the graphed run but the first replays."""
+    from repro_torch.core.baselines import make_scheduler
+    from repro_torch.models import decode_graphs as dg
+    from repro_torch.serving.engine import EngineConfig, ServeEngine
+    from repro_torch.serving.request import Request, SLOSpec
+
+    def streams():
+        be = _graph_backend(cuda)
+        eng = ServeEngine(be, make_scheduler("tempo", use_predictor=False),
+                          EngineConfig(max_batch=4, prefill_budget=48))
+        eng.load([Request(rid=i + 1, app="chatbot", arrival=0.0,
+                          prompt_len=60 + 21 * i, true_output_len=10,
+                          slo=SLOSpec("throughput", ttlt=1e6))
+                  for i in range(3)], [])
+        fin = eng.run()
+        assert len(fin) == 3
+        return be, {r.rid: list(be.generated[r.rid]) for r in fin}
+
+    be, graphed = streams()
+    m = be.model
+    assert be.n_prefill_dispatches > 4
+    assert (m.n_prefill_graph_captures, m.n_prefill_graph_replays) == \
+        (1, be.n_prefill_dispatches - 1)
+    monkeypatch.setattr(dg, "usable", lambda *a: False)
+    be, eager = streams()
+    assert be.model.n_prefill_graph_replays == 0
+    assert graphed == eager
+
+
+def test_prefill_graph_replay_allocates_nothing(cuda):
+    """A replay copies its tokens and table into the graph's buffers and
+    fills its start and length there: the call allocates nothing."""
+    be = _graph_backend(cuda)
+    m = be.model
+    calls, tab = _prompt_chunks(be, [64, 64, 64], 0)
+    for toks, start, n in calls[:2]:
+        m.prefill_paged(be.params, be.pages, toks, start, tab, n)
+    toks, start, n = calls[2]
+    torch.cuda.synchronize()
+    stats0 = torch.cuda.memory_stats()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    m.prefill_paged(be.params, be.pages, toks, start, tab, n)
+    torch.cuda.synchronize()
+    stats1 = torch.cuda.memory_stats()
+    assert m.n_prefill_graph_replays == 2
+    assert stats1["allocation.all.allocated"] \
+        == stats0["allocation.all.allocated"]
+    assert torch.cuda.max_memory_allocated() == base

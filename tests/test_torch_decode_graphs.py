@@ -1,10 +1,12 @@
-"""The decode forward's CUDA graphs (``models/decode_graphs.py``) on the
+"""The paged forwards' CUDA graphs (``models/decode_graphs.py``) on the
 CPU: which calls may take a graph (CUDA inputs at tp=1, outside a capture
-and a dispatch mode), the eager path bitwise ``_decode_forward`` with the
-counters at zero on the CPU, under a TP context and under a cost counter,
-and the graph table's keying, invalidation and launch counts on a stub
-capture, whose graph runs the captured forward again on its own buffers.
-The graphs themselves run on the card (``tests/test_torch_cuda.py``)."""
+and a dispatch mode), the eager paths bitwise ``_decode_forward`` and the
+int-argument prefill with the counters at zero on the CPU, under a TP
+context and under a cost counter, prefill's device start and length
+writing the pages the int path writes, and the graph table's keying by
+kind and shape, invalidation and counts on a stub capture, whose graph
+runs the captured forward again on its own buffers.  The graphs
+themselves run on the card (``tests/test_torch_cuda.py``)."""
 
 import dataclasses
 
@@ -41,8 +43,11 @@ class StubGraph:
 
 def stub_capture(graphs, forward, inputs):
     """Runs the forward once, as a capture records it; the stub graph's
-    replay runs it again on the same buffers into the same output."""
+    replay runs it again on the same buffers into the same output (a
+    prefill forward has none: it writes the pages)."""
     out = forward(*inputs)
+    if out is None:
+        return StubGraph(lambda: forward(*inputs)), None
     return StubGraph(lambda: out.copy_(forward(*inputs))), out
 
 
@@ -78,12 +83,13 @@ def on_card(monkeypatch):
     _on_card(monkeypatch)
 
 
-def _model(arch="tinyllama-1.1b", ctx=NULL_CTX, layers=2):
+def _model(arch="tinyllama-1.1b", ctx=NULL_CTX, layers=2, pool=POOL,
+           page=PAGE):
     cfg = dataclasses.replace(reduced_config(arch), num_layers=layers)
     m = build_model(cfg, ctx)
     m.decode_graphs = dg.DecodeGraphs(capture=stub_capture)
     params = m.init(torch.Generator().manual_seed(0))
-    pages = m.init_paged_caches(POOL, PAGE, "cpu")
+    pages = m.init_paged_caches(pool, page, "cpu")
     return m, params, pages
 
 
@@ -170,8 +176,8 @@ def test_stub_graphs_capture_on_the_second_call_and_replay_bitwise(on_card,
         got, out = m.decode_paged(params, pages, toks, pos, tabs, fused=True)
         assert out is pages and torch.equal(got, want)
         # the caller's logits are a copy the next call does not overwrite
-        g = m.decode_graphs.graphs.get((8, N_MAX, True))
-        assert g is None or got.data_ptr() != g.logits.data_ptr()
+        g = m.decode_graphs.graphs.get(("decode", 8, N_MAX, True))
+        assert g is None or got.data_ptr() != g.out.data_ptr()
     _equal_pools(pages, ref)
     assert (m.n_decode_graph_captures, m.n_decode_graph_replays) == (1, 3)
     dec = sp.select("model.decode")
@@ -182,7 +188,7 @@ def test_stub_graphs_capture_on_the_second_call_and_replay_bitwise(on_card,
              if sp.name[i] == "model.lm_head"}
     assert dec[0] in inner and dec[1] not in inner
     # the graph holds the f32 head it reads, and the rope table
-    holds = m.decode_graphs.graphs[(8, N_MAX, True)].holds
+    holds = m.decode_graphs.graphs[("decode", 8, N_MAX, True)].holds
     assert holds[0] is m._head and holds[2].dtype == torch.float32
 
 
@@ -210,35 +216,186 @@ def test_stub_table_keys_by_shape_and_drops_on_new_params_pages_or_head(
             return plan, t.capture(key, forward, (x,), holds=())
         return plan, forward(x)
 
+    a, b = ("decode", 8, 4, True), ("decode", 16, 4, True)
     x = torch.arange(4.0)
-    assert [step("a", x)[0] for _ in range(3)] == \
+    assert [step(a, x)[0] for _ in range(3)] == \
         [dg.EAGER, dg.CAPTURE, dg.REPLAY]
-    assert step("b", x)[0] == dg.EAGER and step("a", x)[0] == dg.REPLAY
+    assert step(b, x)[0] == dg.EAGER and step(a, x)[0] == dg.REPLAY
     # the replay reads the caller's input and hands out a copy
     before = launches["fused_decode_attention"]
-    plan, y = step("a", x + 1)
+    plan, y = step(a, x + 1)
     assert plan == dg.REPLAY and torch.equal(y, 2 * (x + 1))
     assert launches["fused_decode_attention"] == before + 5
-    assert y.data_ptr() != t.graphs["a"].logits.data_ptr()
+    assert y.data_ptr() != t.graphs[a].out.data_ptr()
     # the capture's own launches were taken back: one forward, counted once
     before = launches["fused_decode_attention"]
-    assert step("b", x)[0] == dg.CAPTURE
+    assert step(b, x)[0] == dg.CAPTURE
     assert launches["fused_decode_attention"] == before + 5
-    assert t.captures == 2 and t.replays == 5 and set(t.graphs) == {"a", "b"}
+    assert t.captures == {"decode": 2} and t.replays == {"decode": 5}
+    assert set(t.graphs) == {a, b}
+    # a prefill key of the same numbers is another graph, counted apart
+    pre = ("prefill", 8, 4)
+    assert [step(pre, x)[0] for _ in range(3)] == \
+        [dg.EAGER, dg.CAPTURE, dg.REPLAY]
+    assert t.captures == {"decode": 2, "prefill": 1}
+    assert t.replays == {"decode": 5, "prefill": 2}
+    assert step(a, x)[0] == dg.REPLAY and set(t.graphs) == {a, b, pre}
     # new params, new pages, another head or a head changed in place: every
-    # graph and every key seen goes, and the call runs eager
+    # graph of either kind and every key seen goes, and the call runs eager
     head2 = torch.zeros(3)
     for kw in ({"params": {"lm_head": head}}, {"pages": {}},
                {"head": head2}):
         new = dict(params=params, pages=pages, head=head)
         new.update(kw)
-        assert step("a", x, **new)[0] == dg.EAGER
-        assert set(t.graphs) == set() and t.seen == {"a"}
-        assert [step("a", x)[0] for _ in range(3)] == \
+        assert step(a, x, **new)[0] == dg.EAGER
+        assert set(t.graphs) == set() and t.seen == {a}
+        assert [step(a, x)[0] for _ in range(3)] == \
             [dg.EAGER, dg.CAPTURE, dg.REPLAY]
+        assert [step(pre, x)[0] for _ in range(2)] == [dg.EAGER, dg.CAPTURE]
     head.add_(1)
-    assert step("a", x)[0] == dg.EAGER and not t.graphs
+    assert step(pre, x)[0] == dg.EAGER and not t.graphs
     assert t.owner[3] == head._version
+    # a host int fills its 0-d buffer; a forward without output gives None
+    t.drop()
+    box = {}
+
+    def capture_none(graphs, forward, inputs):
+        forward(*inputs)
+        return StubGraph(lambda: box.update(n=int(inputs[0]))), None
+
+    t2 = dg.DecodeGraphs(capture=capture_none)
+    n0 = torch.tensor(3)
+    assert t2.capture(pre, lambda n: None, (n0,), holds=()) is None
+    assert box["n"] == 3 and t2.replay(pre, (41,)) is None
+    assert box["n"] == 41 and int(n0) == 3
+    assert t2.captures == {"prefill": 1} and t2.replays == {"prefill": 2}
+
+
+# -- prefill: a chunk's start and length on the device ---------------------
+PF_PAGE, PF_NMAX, PF_POOL = 16, 16, 20   # 256 tokens a table; scrap page 19
+
+
+def _chunk(step):
+    """A 64-row chunk's tokens and a table of the pool's pages."""
+    g = np.random.default_rng(100 + step)
+    toks = torch.tensor(g.integers(0, 256, (1, 64)), dtype=torch.int32)
+    tab = torch.tensor(g.permutation(PF_POOL - 1)[:PF_NMAX],
+                       dtype=torch.int32)
+    return toks, tab
+
+
+def _written(a, b):
+    """(page, slot) pairs where unit pools ``a`` and ``b`` differ."""
+    out = set()
+    for n, pool in a["units"].items():
+        for k, t in pool.items():
+            d = (t != b["units"][n][k]).flatten(3).any(-1).any(0)
+            out |= {tuple(ix) for ix in d.nonzero().tolist()}
+    return out
+
+
+@pytest.mark.parametrize("start", [0, 64, 128])
+def test_prefill_device_start_and_length_write_the_int_paths_pages(start):
+    """``prefill_paged`` (its chunk start and length filled into 0-d
+    tensors on the device) writes the pools the forward given host ints
+    writes, bitwise: a full chunk at the slots it covers, and a chunk of 40
+    real rows at those, its 24 padding rows at the scrap page's slot 0."""
+    m, params, pages = _model(pool=PF_POOL, page=PF_PAGE)
+    for n in (64, 40):
+        toks, tab = _chunk(start + n)
+        before = _pages_copy(pages)
+        ref = m._prefill_forward(params, _pages_copy(pages), toks, start,
+                                 tab, n)
+        assert m.prefill_paged(params, pages, toks, start, tab, n) is pages
+        _equal_pools(pages, ref)
+        want = {(int(tab[p // PF_PAGE]), p % PF_PAGE)
+                for p in range(start, start + n)}
+        if n < 64:
+            want.add((PF_POOL - 1, 0))
+        assert _written(pages, before) == want
+
+
+@pytest.mark.parametrize("case", ["cpu", "tp_ctx", "cost_counter"])
+def test_eager_prefill_paths_write_the_int_paths_pages_and_count_nothing(
+        case, request):
+    """Three prefill calls of one shape, which would capture and replay
+    if graphs engaged, write the int path's pools and take no graph."""
+    ctx = NULL_CTX
+    if case != "cpu":
+        request.getfixturevalue("on_card")
+    if case == "tp_ctx":
+        ctx = AxisCtx(tp_attn_axis=Identity(), tp_mlp_axis=Identity(),
+                      tp_vocab_axis=Identity())
+    m, params, pages = _model(ctx=ctx, pool=PF_POOL, page=PF_PAGE)
+    ref = _pages_copy(pages)
+    for i, start in enumerate((0, 64, 128)):
+        toks, tab = _chunk(0)
+        ref = m._prefill_forward(params, ref, toks, start, tab, 64 - i)
+        if case == "cost_counter":
+            with CostCounter():
+                m.prefill_paged(params, pages, toks, start, tab, 64 - i)
+        else:
+            m.prefill_paged(params, pages, toks, start, tab, 64 - i)
+    _equal_pools(pages, ref)
+    assert m.n_prefill_graph_captures == m.n_prefill_graph_replays == 0
+    assert not m.decode_graphs.graphs and not m.decode_graphs.seen
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "kimi-k2-1t-a32b"])
+def test_stub_prefill_graphs_capture_on_the_second_call_and_write_bitwise(
+        on_card, arch):
+    """A prompt's 64-row chunks: the first call eager, the second captured
+    and replayed, the rest replayed, each writing the int path's pools
+    bitwise; the prefill graph keyed apart from decode's, counted apart,
+    and dropped with every other graph on new pages, a head changed in
+    place or new params."""
+    m, params, pages = _model(arch, pool=PF_POOL, page=PF_PAGE)
+    plain = build_model(m.cfg)
+    sp = Spans()
+    m.spans = sp
+    ref = _pages_copy(pages)
+    key = ("prefill", 64, PF_NMAX)
+
+    def chunks(pages, ref, steps, graphed):
+        for step, (start, n) in enumerate(steps):
+            toks, tab = _chunk(step)
+            ref = plain._prefill_forward(params, ref, toks, start, tab, n)
+            assert m.prefill_paged(params, pages, toks, start, tab,
+                                   n) is pages
+            _equal_pools(pages, ref)
+        pre = sp.select("model.prefill")[-len(steps):]
+        assert [sp.attrs[i]["graphed"] for i in pre] == graphed
+        return pre, ref
+
+    pre, ref = chunks(pages, ref, [(0, 64), (64, 64), (128, 64), (192, 8)],
+                      [0, 1, 1, 1])
+    assert (m.n_prefill_graph_captures, m.n_prefill_graph_replays) == (1, 3)
+    assert m.n_decode_graph_captures == m.n_decode_graph_replays == 0
+    # the eager call records spans inside its forward, the capture none
+    inner = {sp.parent[i] for i in range(len(sp))
+             if sp.name[i] == "model.embed"}
+    assert pre[0] in inner and pre[1] not in inner
+    # the graph holds the rope table it reads
+    (rope,) = m.decode_graphs.graphs[key].holds
+    assert rope.dtype == torch.float32
+    # a decode call of 64 lanes on the same table width is its own key
+    toks, pos, _ = _inputs(64, 0)
+    tabs = _chunk(0)[1][None].repeat(64, 1)
+    for want in ([key], [key, ("decode", 64, PF_NMAX, True)]):
+        _, pages = m.decode_paged(params, pages, toks, pos, tabs, fused=True)
+        ref = _pages_copy(pages)
+        assert list(m.decode_graphs.graphs) == want
+    assert m.n_prefill_graph_replays == 3
+    # new pages, a head changed in place, new params: every graph goes and
+    # the next call runs eager, then the shape captures again
+    pages = _pages_copy(pages)
+    pre, ref = chunks(pages, ref, [(0, 64), (64, 30)], [0, 1])
+    params["lm_head"].add_(0)
+    pre, ref = chunks(pages, ref, [(0, 64)], [0])
+    assert list(m.decode_graphs.graphs) == []
+    params = dict(params)
+    pre, ref = chunks(pages, ref, [(64, 64), (0, 64), (128, 64)], [0, 1, 1])
+    assert (m.n_prefill_graph_captures, m.n_prefill_graph_replays) == (3, 6)
 
 
 def _req(rid, prompt, out):
@@ -263,6 +420,7 @@ def _served():
 def test_stub_graphs_serve_the_eager_streams_and_are_counted(monkeypatch):
     _, reg, eager = _served()
     assert reg.value_of("torch_decode_graph_replays_total") == 0
+    assert reg.value_of("torch_prefill_graph_replays_total") == 0
     _on_card(monkeypatch)
     be, reg, graphed = _served()
     assert graphed == eager
@@ -271,6 +429,14 @@ def test_stub_graphs_serve_the_eager_streams_and_are_counted(monkeypatch):
     assert reg.value_of("torch_decode_graph_captures_total") == 1
     assert reg.value_of("torch_decode_graph_replays_total") == \
         m.n_decode_graph_replays
+    # every prefill call of the run (one 64-row call a chunk) but the
+    # first replays
+    assert be.n_prefill_dispatches > 2
+    assert (m.n_prefill_graph_captures, m.n_prefill_graph_replays) == \
+        (1, be.n_prefill_dispatches - 1)
+    assert reg.value_of("torch_prefill_graph_captures_total") == 1
+    assert reg.value_of("torch_prefill_graph_replays_total") == \
+        m.n_prefill_graph_replays
     # new weights drop the graphs: the next call runs eager, then captures
     be.load_params(m.init(torch.Generator().manual_seed(1)))
     toks, pos, _ = (a.numpy() for a in _inputs(64, 0))
