@@ -1023,8 +1023,7 @@ def fleet(torch, pa, colocated: str, card: str) -> None:
     migration_round_trip(torch, *sink)
     del sink
     torch.cuda.empty_cache()
-    check(bool(pa._tickets) and all(int(t.abs().sum()) == 0
-                                    for t in pa._tickets.values()),
+    check(bool(pa._tickets) and pa.ticket_sum() == 0,
           "the paged kernels' ticket counters are not zero after the fleet")
     print(f"  ticket counters zero on {len(pa._tickets)} device(s); fleet "
           f"phase {time.perf_counter() - t0:.2f} s wall ({card})")

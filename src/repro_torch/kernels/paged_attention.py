@@ -40,7 +40,7 @@ kernels of one device run on one stream at a time.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, List
 
 import torch
 
@@ -69,21 +69,17 @@ MAX_SMEM = 232448
 CHUNK = 128
 
 # zeroed int32 counters per device, one per (lane, kv-head, task group) of
-# a launch; the last block of each group resets its counter to 0
-_tickets: Dict[torch.device, torch.Tensor] = {}
+# a launch; the last block of each group resets its counter to 0.  Every
+# buffer handed to a launch is kept, the newest last: a CUDA graph that
+# captured a launch reads its buffer at that address after a wider launch
+# has taken a bigger one
+_tickets: Dict[torch.device, List[torch.Tensor]] = {}
 
 
 def ticket_sum() -> int:
-    """The ticket counters' absolute values summed over every device of
-    this process: 0 whenever no launch is in flight."""
-    return sum(int(t.abs().sum()) for t in _tickets.values())
-
-
-def ticket_buffers() -> tuple:
-    """The ticket counters of every device.  A CUDA graph that launched a
-    kernel holds them, so that the addresses it baked in stay allocated
-    after a wider launch has replaced them."""
-    return tuple(_tickets.values())
+    """The ticket counters' absolute values summed over every buffer of
+    every device of this process: 0 whenever no launch is in flight."""
+    return sum(int(t.abs().sum()) for ts in _tickets.values() for t in ts)
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -348,10 +344,11 @@ def _launch(name, q, k_pages, block_tables, scale, ptrs):
         part = torch.empty(B * KV * partial // 4, dtype=torch.float32,
                            device=q.device)
         need = B * KV * groups
-        tickets = _tickets.get(q.device)
-        if tickets is None or tickets.numel() < need:
-            tickets = torch.zeros(need, dtype=torch.int32, device=q.device)
-            _tickets[q.device] = tickets
+        held = _tickets.setdefault(q.device, [])
+        if not held or held[-1].numel() < need:
+            held.append(torch.zeros(need, dtype=torch.int32,
+                                    device=q.device))
+        tickets = held[-1]
     with torch.cuda.device(q.device):
         err = getattr(_kernels(), f"{name}_launch")(
             *ptrs, *lead, H, KV, D, page, n_max,

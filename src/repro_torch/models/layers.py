@@ -31,12 +31,13 @@ def softplus(x):
                                           device=x.device))
 
 
-@functools.lru_cache(maxsize=16)
+@functools.cache
 def _inv_freq(head_dim: int, theta: float, device: torch.device):
     """Rope inverse frequencies, made in float64 with numpy and rounded to
     float32, as the reference does with 64-bit mode off.  Cached per device:
     a fresh host-to-device copy in every layer would make the host wait for
-    the device each time.  Callers must not modify the tensor."""
+    the device each time.  Never evicted: a CUDA graph of a paged forward
+    reads the table at its address.  Callers must not modify the tensor."""
     half = head_dim // 2
     inv = 1.0 / (theta ** (np.arange(0, half) / half))
     return torch.as_tensor(inv.astype(np.float32), device=device)

@@ -43,11 +43,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.shapes import Shape
-from repro_torch.kernels import paged_attention as pa
-from repro_torch.models import decode_graphs as dg
+from repro_torch.models import paged_graphs as pg
 from repro_torch.models.attention import VerifyWindow
-from repro_torch.models.layers import (_inv_freq, lm_loss, rms_norm,
-                                       sinusoidal_embedding)
+from repro_torch.models.layers import lm_loss, rms_norm, sinusoidal_embedding
 from repro_torch.models.partition import NULL_CTX, AxisCtx
 from repro_torch.models.transformer import (FFNS, MIXERS, stack_apply,
                                             stack_apply_paged)
@@ -58,43 +56,22 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def _scalar(v: int, device) -> torch.Tensor:
-    return torch.full((), v, dtype=torch.int64, device=device)
-
-
 @dataclasses.dataclass
 class Model:
     cfg: ModelConfig
     # the mesh context (models.partition): the paged entry points'
     # serving-TP collectives, the full-sequence forward's expert parallelism
     ctx: AxisCtx = NULL_CTX
-    # (lm_head, its version counter, its f32 copy); see _head_f32
+    # [lm_head, its version counter, its f32 copy]; see _head_state
     _head: Any = dataclasses.field(default=None, repr=False, compare=False)
     # wall-clock spans of the paged entry points (obs/spans.py); the
     # serving backend attaches its recorder here
     spans: Any = dataclasses.field(default=NULL_SPANS, repr=False,
                                    compare=False)
     # CUDA graphs of the paged decode and prefill forwards, one per call
-    # shape (models/decode_graphs.py); ``decode_paged`` and
-    # ``prefill_paged`` replay them
-    decode_graphs: dg.DecodeGraphs = dataclasses.field(
-        default_factory=dg.DecodeGraphs, repr=False, compare=False)
-
-    @property
-    def n_decode_graph_captures(self) -> int:
-        return self.decode_graphs.captures["decode"]
-
-    @property
-    def n_decode_graph_replays(self) -> int:
-        return self.decode_graphs.replays["decode"]
-
-    @property
-    def n_prefill_graph_captures(self) -> int:
-        return self.decode_graphs.captures["prefill"]
-
-    @property
-    def n_prefill_graph_replays(self) -> int:
-        return self.decode_graphs.replays["prefill"]
+    # shape (models/paged_graphs.py); ``_paged_call`` replays them
+    graphs: pg.PagedGraphs = dataclasses.field(
+        default_factory=pg.PagedGraphs, repr=False, compare=False)
 
     # ------------------------------------------------------------------
     def init(self, generator: torch.Generator) -> Dict[str, Any]:
@@ -451,39 +428,18 @@ class Model:
 
         ``start`` and ``n`` are host ints; the forward takes them as 0-d
         device tensors, so one forward serves every chunk of its shape.
-        On CUDA at tp=1 (``decode_graphs.usable``) the call replays a CUDA
-        graph of ``_prefill_forward`` for its shape (C, n_max), with the
-        rule of ``decode_paged``: the shape's first call runs eager, its
-        second captures the graph and replays it, later ones replay, and
-        new ``params`` or ``pages`` dicts or a changed lm_head drop every
-        graph.  A replay writes the pages bitwise as the eager forward
-        does.  The ``model.prefill`` span's ``graphed`` is 1 when a graph
-        wrote them; a captured call records no spans inside it."""
-        graphs, plan = self.decode_graphs, dg.EAGER
-        if dg.usable(self.ctx, tokens, block_table):
-            key = ("prefill", tokens.shape[1], block_table.shape[0])
-            plan = graphs.plan(key, params, pages, params["lm_head"])
-        sp = self.spans
-        if sp.on:
-            sid = sp.begin("model.prefill", rows=tokens.shape[1], tokens=n,
-                           graphed=int(plan != dg.EAGER))
-        if plan == dg.REPLAY:
-            graphs.replay(key, (tokens, start, block_table, n))
-        else:
-            dev = tokens.device
-            # filled on the device: a host-to-device copy would wait on it
-            inputs = (tokens, _scalar(start, dev), block_table,
-                      _scalar(n, dev))
-            if plan == dg.CAPTURE:
-                def forward(tokens, start, block_table, n):
-                    self._prefill_forward(params, pages, tokens, start,
-                                          block_table, n)
+        On CUDA at tp=1 the call replays a CUDA graph of
+        ``_prefill_forward`` for its shape (C, n_max), as ``_paged_call``
+        says; a replay writes the pages bitwise as the eager forward
+        does."""
+        def forward(tokens, start, block_table, n):
+            self._prefill_forward(params, pages, tokens, start, block_table,
+                                  n)
 
-                self._capture(key, forward, inputs, self._rope_holds(dev))
-            else:
-                self._prefill_forward(params, pages, *inputs)
-        if sp.on:
-            sp.end(sid)
+        self._paged_call(("prefill", tokens.shape[1], block_table.shape[0]),
+                         params, pages, forward,
+                         (tokens, start, block_table, n),
+                         rows=tokens.shape[1], tokens=n)
         return pages
 
     def _prefill_forward(self, params, pages, tokens, start, block_table,
@@ -491,41 +447,31 @@ class Model:
         """The eager forward of ``prefill_paged``: ``start`` and ``n`` are
         0-d int64 tensors on the tokens' device, as ``prefill_paged``
         passes them, or host ints (the same ops either way)."""
-        x = self._embed_paged(params, tokens)
+        with self.spans.span("model.embed"):
+            x = params["embed"][tokens.long()]
         _, pages = stack_apply_paged(x, params, self.cfg, "prefill", pages,
                                      block_table, start, n, ctx=self.ctx,
                                      spans=self.spans)
         return pages
 
-    def _embed_paged(self, params, tokens):
-        """The paged entry points' token embeddings, in a ``model.embed``
-        span."""
-        sp = self.spans
-        if sp.on:
-            sid = sp.begin("model.embed")
-        x = params["embed"][tokens.long()]
-        if sp.on:
-            sp.end(sid)
-        return x
-
-    def _head_paged(self, params, x):
-        """``_lm_head`` in a ``model.lm_head`` span."""
-        sp = self.spans
-        if sp.on:
-            sid = sp.begin("model.lm_head")
-        logits = self._lm_head(params, x)
-        if sp.on:
-            sp.end(sid)
-        return logits
+    def _head_state(self, head: torch.Tensor) -> list:
+        """[head, its version counter, its f32 copy or None]: one list per
+        lm_head tensor, made again after an in-place change to it.  It is
+        part of the paged calls' graph owner (``_paged_call``), which keeps
+        the f32 copy a decode graph reads allocated."""
+        h = self._head
+        if h is None or h[0] is not head or h[1] != head._version:
+            h = self._head = [head, head._version, None]
+        return h
 
     def _head_f32(self, head: torch.Tensor) -> torch.Tensor:
         """f32 copy of the lm_head (under serving TP the rank's shard of
         it), made once per head tensor (and again after an in-place change
         to it) instead of in every forward."""
-        if (self._head is None or self._head[0] is not head
-                or self._head[1] != head._version):
-            self._head = (head, head._version, head.float())
-        return self._head[2]
+        h = self._head_state(head)
+        if h[2] is None:
+            h[2] = head.float()
+        return h[2]
 
     def decode_paged(self, params, pages, tokens, positions, block_tables,
                      *, fused: bool = False):
@@ -535,72 +481,58 @@ class Model:
         lm_head product runs in f32 (exact products of the stored values,
         f32 sums), as the reference's ``preferred_element_type=float32``.
 
-        On CUDA at tp=1 (``decode_graphs.usable``) the call replays a CUDA
-        graph of ``_decode_forward`` for its shape (B, n_max, fused): the
-        shape's first call runs eager, its second captures the graph and
-        replays it, later ones replay.  A replay runs the eager forward's
-        kernels at its shapes and in its order, on the same weights and
-        pools, so its logits are bitwise the eager forward's; they are a
-        copy the next call does not overwrite.  New ``params`` or
-        ``pages`` dicts or a changed lm_head drop every graph.  The
-        ``model.decode`` span's ``graphed`` is 1 when a graph computed the
-        logits; a captured call records no spans inside it."""
-        graphs, plan = self.decode_graphs, dg.EAGER
-        if dg.usable(self.ctx, tokens, positions, block_tables):
-            key = ("decode", tokens.shape[0], block_tables.shape[1], fused)
-            plan = graphs.plan(key, params, pages, params["lm_head"])
-        sp = self.spans
-        if sp.on:
-            sid = sp.begin("model.decode", rows=tokens.shape[0],
-                           graphed=int(plan != dg.EAGER))
-        inputs = (tokens, positions, block_tables)
-        if plan == dg.REPLAY:
-            logits = graphs.replay(key, inputs)
-        elif plan == dg.CAPTURE:
-            # the graph holds the f32 head (made here, outside it), the
-            # ticket counters and the rope table it reads
-            self._head_f32(params["lm_head"])
+        On CUDA at tp=1 the call replays a CUDA graph of
+        ``_decode_forward`` for its shape (B, n_max, fused), as
+        ``_paged_call`` says.  A replay runs the eager forward's kernels at
+        its shapes and in its order, on the same weights and pools, so its
+        logits are bitwise the eager forward's; they are a copy the next
+        call does not overwrite."""
+        def forward(tokens, positions, block_tables):
+            return self._decode_forward(params, pages, tokens, positions,
+                                        block_tables, fused=fused)[0]
 
-            def forward(tokens, positions, block_tables):
-                return self._decode_forward(params, pages, tokens, positions,
-                                            block_tables, fused=fused)[0]
-
-            logits = self._capture(
-                key, forward, inputs,
-                [self._head, pa.ticket_buffers()]
-                + self._rope_holds(tokens.device))
-        else:
-            logits, pages = self._decode_forward(params, pages, *inputs,
-                                                 fused=fused)
-        if sp.on:
-            sp.end(sid)
+        logits = self._paged_call(
+            ("decode", tokens.shape[0], block_tables.shape[1], fused),
+            params, pages, forward, (tokens, positions, block_tables),
+            rows=tokens.shape[0])
         return logits, pages
 
     def _decode_forward(self, params, pages, tokens, positions,
                         block_tables, *, fused: bool):
         """The eager decode forward of ``decode_paged``."""
-        x = self._embed_paged(params, tokens)
+        with self.spans.span("model.embed"):
+            x = params["embed"][tokens.long()]
         x, pages = stack_apply_paged(x, params, self.cfg, "decode", pages,
                                      block_tables, positions, fused=fused,
                                      ctx=self.ctx, spans=self.spans)
-        return self._head_paged(params, x)[:, 0], pages
+        with self.spans.span("model.lm_head"):
+            logits = self._lm_head(params, x)
+        return logits[:, 0], pages
 
-    def _rope_holds(self, device) -> list:
-        """The rope table a graph of this model's forward reads, in a list
-        (empty without rope)."""
-        cfg = self.cfg
-        if cfg.positional != "rope":
-            return []
-        return [_inv_freq(cfg.resolved_head_dim, cfg.rope_theta, device)]
-
-    def _capture(self, key, forward, inputs, holds):
-        """Capture ``forward`` for ``key`` with the span recorder detached,
-        and replay it; returns the call's output (decode's logits)."""
-        spans, self.spans = self.spans, NULL_SPANS
-        try:
-            return self.decode_graphs.capture(key, forward, inputs, holds)
-        finally:
-            self.spans = spans
+    def _paged_call(self, key, params, pages, forward, inputs, **attrs):
+        """``forward(*inputs)`` of a paged entry point, ``key`` its kind and
+        shape, in a ``model.<kind>`` span with ``attrs``.  On CUDA at tp=1
+        (``paged_graphs.usable``) the call goes through the graph table:
+        the shape's first call runs eager, its second captures the graph
+        and replays it, later ones replay; new ``params`` or ``pages`` dicts
+        or a changed lm_head drop every graph.  Otherwise it runs eager.
+        Host ints in ``inputs`` reach the forward as 0-d device tensors.
+        The span's ``graphed`` is 1 when a graph computes the call; such a
+        call runs with the recorder detached, so a capture records no spans
+        inside it.  Returns the forward's output."""
+        graphs, spans = self.graphs, self.spans
+        owner = (params, pages, self._head_state(params["lm_head"]))
+        usable = pg.usable(self.ctx, *inputs)
+        graphed = usable and graphs.graphed(key, owner)
+        with spans.span("model." + key[0], **attrs, graphed=int(graphed)):
+            if not usable:
+                return forward(*pg.on_device(inputs))
+            if graphed:
+                self.spans = NULL_SPANS
+            try:
+                return graphs.run(key, owner, forward, inputs)
+            finally:
+                self.spans = spans
 
     def verify_paged(self, params, pages, tokens, pos0, widths,
                      block_tables, rows=None):

@@ -157,24 +157,19 @@ def layer_apply_paged(x, lp, mixer, ffn, cfg, mode, pages, tables, pos,
                                               ctx)
         return [_ffn(xs + m, lp, ffn, cfg, ctx)
                 for xs, m in zip(x, mix_out)], new_pages
-    if spans.on:
-        sid = spans.begin("layer.attn")
-    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-    if mode == "prefill":
-        mix_out, new_pages = gqa_prefill_paged(h, lp, cfg, pages, tables,
-                                               pos, n, ctx)
-    elif mode == "decode":
-        mix_out, new_pages = gqa_decode_paged(h, lp, cfg, pages, tables, pos,
-                                              fused=fused, ctx=ctx)
-    else:
-        raise ValueError(f"unknown paged mode {mode!r} "
-                         "(prefill | decode | verify)")
-    if spans.on:
-        spans.end(sid)
-        sid = spans.begin("layer.ffn")
-    x = _ffn(x + mix_out, lp, ffn, cfg, ctx)
-    if spans.on:
-        spans.end(sid)
+    with spans.span("layer.attn"):
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        if mode == "prefill":
+            mix_out, new_pages = gqa_prefill_paged(h, lp, cfg, pages, tables,
+                                                   pos, n, ctx)
+        elif mode == "decode":
+            mix_out, new_pages = gqa_decode_paged(h, lp, cfg, pages, tables,
+                                                  pos, fused=fused, ctx=ctx)
+        else:
+            raise ValueError(f"unknown paged mode {mode!r} "
+                             "(prefill | decode | verify)")
+    with spans.span("layer.ffn"):
+        x = _ffn(x + mix_out, lp, ffn, cfg, ctx)
     return x, new_pages
 
 
@@ -197,12 +192,11 @@ def stack_apply_paged(x, params, cfg, mode, pages, tables, pos, n=None,
     for u in range(cfg.num_units):
         for i, (mixer, ffn) in enumerate(cfg.unit_pattern):
             key = f"l{i}"
-            if spans.on:
-                sid = spans.begin("layer.slice")
-            lp = {name: leaf[u] for name, leaf in params["units"][key].items()}
-            up = {name: leaf[u] for name, leaf in pages["units"][key].items()}
-            if spans.on:
-                spans.end(sid)
+            with spans.span("layer.slice"):
+                lp = {name: leaf[u]
+                      for name, leaf in params["units"][key].items()}
+                up = {name: leaf[u]
+                      for name, leaf in pages["units"][key].items()}
             x, _ = layer_apply_paged(x, lp, mixer, ffn, cfg, mode, up, tables,
                                      pos, n, fused, ctx, spans)
     return x, pages

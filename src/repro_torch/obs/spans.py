@@ -14,16 +14,14 @@ While a torch profiler is running (the profiler's own test,
 ``torch.profiler.record_function("rt:<name>")``, so the profiler records
 the same range on its own clock, beside the kernels launched inside it.
 
-:data:`NULL_SPANS` is the disabled default.  A call site tests ``on``
-before it touches the clock, so with the recorder off a span costs one
-attribute read at its start and one at its end, and nothing else::
+:data:`NULL_SPANS` is the disabled default.  A call site is one line::
 
-    sp = self.spans
-    if sp.on:
-        sid = sp.begin("backend.decode", rows=B, lanes=n)
-    ...
-    if sp.on:
-        sp.end(sid)
+    with self.spans.span("backend.decode", rows=B, lanes=n):
+        ...
+
+Off, ``span`` returns one shared no-op context, so a span costs a call
+and that context's enter and exit, and touches no clock.  On, the span is
+closed however its body ends, an exception included.
 
 Spans nest by call order on one thread.  Under serving TP only rank 0
 records (the workers keep :data:`NULL_SPANS`).
@@ -31,6 +29,7 @@ records (the workers keep :data:`NULL_SPANS`).
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Dict, List, Optional
 
@@ -91,18 +90,33 @@ class Spans:
             if j == i:
                 break
 
+    @contextlib.contextmanager
+    def span(self, name: str, **attrs: int):
+        """``begin`` and ``end`` around the body of a ``with``."""
+        i = self.begin(name, **attrs)
+        try:
+            yield
+        finally:
+            self.end(i)
+
     def select(self, name: str) -> List[int]:
         """Indices of the closed spans called ``name``, in start order."""
         return [i for i, n in enumerate(self.name)
                 if n == name and self.t1[i]]
 
 
+_NO_SPAN = contextlib.nullcontext()
+
+
 class NullSpans:
-    """Disabled default: ``on`` is False, and a call site that tests it
-    touches nothing else."""
+    """Disabled default: ``on`` is False, and ``span`` returns one shared
+    no-op context."""
 
     on = False
     __slots__ = ()
+
+    def span(self, name: str, **attrs: int):
+        return _NO_SPAN
 
     def begin(self, name: str, **attrs: int) -> int:
         return -1

@@ -35,7 +35,7 @@ CUDA graph that ``Model.decode_paged`` captured of its eager forward, and
 each prefill call after the second of its shape (``ROWS`` tokens, the
 table's width) one that ``Model.prefill_paged`` captured, the chunk's
 start and length filled into the graph's buffers on the device
-(``models/decode_graphs.py``); the first call of a shape runs eager and
+(``models/paged_graphs.py``); the first call of a shape runs eager and
 the second captures.  The replay launches the eager forward's kernels at
 its shapes, in its order, on the same weights and pool, so its logits and
 prompt KV are bitwise the eager forward's and the streams do not change.
@@ -88,7 +88,7 @@ from repro_torch.configs.base import ModelConfig, get_config
 from repro_torch.launch.sharding import (paged_page_specs, paged_param_specs,
                                          paged_tp_plan, serving_tp_ctx,
                                          shard_tree)
-from repro_torch.models import decode_graphs as dg
+from repro_torch.models import paged_graphs as pg
 from repro_torch.models.convert import (from_host, params_from_numpy,
                                         to_host, tree_leaves, tree_map)
 from repro_torch.models.model import build_model, verify_slabs
@@ -411,12 +411,12 @@ class PagedTorchBackend(Backend):
                          f"(Model.{kind}_paged)"),
              obs.counter(f"torch_{kind}_graph_replays_total",
                          f"{kind} forwards run as a replay of a CUDA graph"))
-            for kind in dg.KINDS]
+            for kind in pg.KINDS]
         self._graphs_told = self._graph_counts()
 
     def _graph_counts(self):
-        g = self.model.decode_graphs
-        return [(g.captures[kind], g.replays[kind]) for kind in dg.KINDS]
+        g = self.model.graphs
+        return [(g.captures[kind], g.replays[kind]) for kind in pg.KINDS]
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
@@ -525,15 +525,11 @@ class PagedTorchBackend(Backend):
         if not q:
             return
         self._pf_queue = []
-        sp = self.spans
-        if sp.on:
-            sid = sp.begin("backend.prefill", rows=sum(c[0] for c in q),
-                           tokens=sum(c[4] for c in q))
-        t0 = time.perf_counter()
-        self.on_ranks("_prefill_dev", q)
-        self._t_acc += time.perf_counter() - t0
-        if sp.on:
-            sp.end(sid)
+        with self.spans.span("backend.prefill", rows=sum(c[0] for c in q),
+                             tokens=sum(c[4] for c in q)):
+            t0 = time.perf_counter()
+            self.on_ranks("_prefill_dev", q)
+            self._t_acc += time.perf_counter() - t0
 
     def _prefill_dev(self, q) -> None:
         for C, toks, start, tab, n in q:
@@ -580,12 +576,8 @@ class PagedTorchBackend(Backend):
             logits, self.pages = self.model.decode_paged(
                 self.params, self.pages, toks, pos, tabs_eff, fused=fused)
             self.n_decode_forwards += 1
-            sp = self.spans
-            if sp.on:
-                sid = sp.begin("sampler")
-            nxt = sampler.sample_device(logits, rids, pos)
-            if sp.on:
-                sp.end(sid)
+            with self.spans.span("sampler"):
+                nxt = sampler.sample_device(logits, rids, pos)
             tok_n.append(nxt)
             act_n.append(active)
             toks = torch.where(active, nxt, toks[:, 0])[:, None]
@@ -612,19 +604,13 @@ class PagedTorchBackend(Backend):
         self._flush_prefill()
         t0 = time.perf_counter()
         staged = self._stage_decode(reqs, tables, n)
-        sp = self.spans
-        if sp.on:
-            sid = sp.begin("backend.decode", rows=staged[0].shape[0],
-                           lanes=len(reqs))
-        tok_n, act_n = self.on_ranks("_decode_dev", staged, n, self.fused,
-                                     self.sampler)
-        if sp.on:
-            sp.end(sid)
-            sid = sp.begin("backend.sync")
-        tok_n = tok_n.cpu().numpy()         # ONE host sync per n tokens
-        act_n = act_n.cpu().numpy()
-        if sp.on:
-            sp.end(sid)
+        with self.spans.span("backend.decode", rows=staged[0].shape[0],
+                             lanes=len(reqs)):
+            tok_n, act_n = self.on_ranks("_decode_dev", staged, n,
+                                         self.fused, self.sampler)
+        with self.spans.span("backend.sync"):
+            tok_n = tok_n.cpu().numpy()         # ONE host sync per n tokens
+            act_n = act_n.cpu().numpy()
         self._t_acc += time.perf_counter() - t0
         return self._take_decode(reqs, n, tok_n, act_n)
 
@@ -634,27 +620,23 @@ class PagedTorchBackend(Backend):
         budget, rids)."""
         nr = len(reqs)
         B = _rows(nr)
-        sp = self.spans
-        if sp.on:
-            sid = sp.begin("backend.stage", rows=B, lanes=nr)
-        self._shapes.add(("decode", B, n))
-        self._pages_step += sum(len(t) for t in tables) * n
-        toks, pos, tabs, rem, rids = self._staging_bufs(B)
-        toks[nr:] = 0
-        pos[nr:] = 0
-        tabs[nr:] = self.scrap
-        rem[nr:] = 0
-        rids[nr:] = 0
-        for i, r in enumerate(reqs):
-            gen = self.generated.setdefault(r.rid, [])
-            prompt = self.prompt_ids(r)
-            toks[i, 0] = gen[-1] if gen else prompt[-1]
-            pos[i] = r.prompt_len - 1 + r.decoded
-            tabs[i] = self._padded_table(r.rid, tables[i])
-            rem[i] = max(0, min(n, r.true_output_len - r.decoded))
-            rids[i] = r.rid & 0x7FFFFFFF
-        if sp.on:
-            sp.end(sid)
+        with self.spans.span("backend.stage", rows=B, lanes=nr):
+            self._shapes.add(("decode", B, n))
+            self._pages_step += sum(len(t) for t in tables) * n
+            toks, pos, tabs, rem, rids = self._staging_bufs(B)
+            toks[nr:] = 0
+            pos[nr:] = 0
+            tabs[nr:] = self.scrap
+            rem[nr:] = 0
+            rids[nr:] = 0
+            for i, r in enumerate(reqs):
+                gen = self.generated.setdefault(r.rid, [])
+                prompt = self.prompt_ids(r)
+                toks[i, 0] = gen[-1] if gen else prompt[-1]
+                pos[i] = r.prompt_len - 1 + r.decoded
+                tabs[i] = self._padded_table(r.rid, tables[i])
+                rem[i] = max(0, min(n, r.true_output_len - r.decoded))
+                rids[i] = r.rid & 0x7FFFFFFF
         return toks, pos, tabs, rem, rids
 
     def _take_decode(self, reqs: List, n: int, tok_n: np.ndarray,
@@ -927,15 +909,11 @@ class PagedTorchBackend(Backend):
         self._flush_prefill()
         # the step's one host sync: drain everything queued above, so
         # _t_acc holds the host's time in dispatch calls and its waits
-        sp = self.spans
-        if sp.on:
-            sid = sp.begin("backend.sync")
-        t0 = time.perf_counter()
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self._t_acc += time.perf_counter() - t0
-        if sp.on:
-            sp.end(sid)
+        with self.spans.span("backend.sync"):
+            t0 = time.perf_counter()
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self._t_acc += time.perf_counter() - t0
         if self.obs.enabled:
             # host share = wall since begin_step minus the time in
             # dispatch calls; metrics only, never fed back into the

@@ -14,7 +14,8 @@ opaque), expert-parallel ranks sharing the card equal to
 ``moe_ep_ref``, the decode forward's CUDA graphs: replays bitwise the
 eager forward, streams equal with graphs and without, graphs dropped and
 captured again for new weights, a replay allocating only its logits, and
-the profiler placing a replay's kernels under its ``cudaGraphLaunch``;
+the profiler placing a replay's kernels under its ``cudaGraphLaunch``,
+a ticket buffer a graph may read kept after a wider launch;
 and the prefill forward's: replays writing the eager forward's pages
 across chunkings, streams equal with graphs and without, a replay
 allocating nothing.
@@ -716,7 +717,7 @@ def test_reduced_fleet_on_card_streams_equal_one_replica(cuda, cluster):
     else:
         assert min(f.routed.values()) > 0
     assert merged(sink) == merged([one])
-    assert all(int(t.abs().sum()) == 0 for t in pa._tickets.values())
+    assert pa.ticket_sum() == 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -843,7 +844,7 @@ def test_moe_ep_ranks_sharing_the_card_equal_the_plain_version(cuda):
             assert torch.allclose(results[r][i][0], want, rtol=0, atol=1e-5)
 
 
-# -- the decode forward's CUDA graphs (models/decode_graphs.py) ------------
+# -- the decode forward's CUDA graphs (models/paged_graphs.py) -------------
 def _graph_backend(cuda, arch="tinyllama-1.1b", layers=4, **cfg_kw):
     """A bf16 backend on the card of ``arch`` reduced, at ``layers``
     layers."""
@@ -856,6 +857,11 @@ def _graph_backend(cuda, arch="tinyllama-1.1b", layers=4, **cfg_kw):
                               dtype="bfloat16", **cfg_kw)
     return PagedTorchBackend(config=cfg, num_blocks=64, page=16, max_len=128,
                              seed=0, device=cuda)
+
+
+def _counts(m, kind):
+    """(captures, replays) of ``kind`` in the model's graph table."""
+    return m.graphs.captures[kind], m.graphs.replays[kind]
 
 
 def _graph_inputs(be, B, step):
@@ -905,8 +911,7 @@ def test_decode_graph_replays_bitwise_the_eager_forward(cuda, arch, B):
         assert all(torch.equal(a[..., :-1, :, :, :], b[..., :-1, :, :, :])
                    for a, b in zip(tree_leaves(pages), tree_leaves(ref)))
         assert pa.launches["fused_decode_attention"] == before + L
-        assert (m.n_decode_graph_captures, m.n_decode_graph_replays) == \
-            (int(step >= 1), step)
+        assert _counts(m, "decode") == (int(step >= 1), step)
     assert pa.ticket_sum() == 0
 
 
@@ -914,7 +919,7 @@ def test_decode_graphs_serve_the_eager_streams(cuda, monkeypatch):
     """An engine run streams the same tokens with graphs as with the
     eager forward forced; the graphed run replays."""
     from repro_torch.core.baselines import make_scheduler
-    from repro_torch.models import decode_graphs as dg
+    from repro_torch.models import paged_graphs as pg
     from repro_torch.serving.engine import EngineConfig, ServeEngine
     from repro_torch.serving.request import Request, SLOSpec
 
@@ -932,10 +937,11 @@ def test_decode_graphs_serve_the_eager_streams(cuda, monkeypatch):
         return be.model, {r.rid: list(be.generated[r.rid]) for r in fin}
 
     m, graphed = streams()
-    assert m.n_decode_graph_captures == 1 and m.n_decode_graph_replays > 5
-    monkeypatch.setattr(dg, "usable", lambda *a: False)
+    captures, replays = _counts(m, "decode")
+    assert captures == 1 and replays > 5
+    monkeypatch.setattr(pg, "usable", lambda *a: False)
     m, eager = streams()
-    assert m.n_decode_graph_replays == 0
+    assert m.graphs.replays["decode"] == 0
     assert graphed == eager
 
 
@@ -945,17 +951,17 @@ def test_new_params_drop_the_decode_graphs_and_recapture(cuda):
     toks, pos, tabs = (a.cpu().numpy() for a in _graph_inputs(be, 64, 0))
     for _ in range(3):
         be.decode_logits(toks, pos, tabs)
-    assert m.n_decode_graph_captures == 1 and len(m.decode_graphs.graphs) == 1
+    assert m.graphs.captures["decode"] == 1 and len(m.graphs.graphs) == 1
     be.load_params(m.init(torch.Generator(device=cuda).manual_seed(1)))
     got = be.decode_logits(toks, pos, tabs)         # eager: graphs dropped
-    assert not m.decode_graphs.graphs and m.n_decode_graph_captures == 1
+    assert not m.graphs.graphs and m.graphs.captures["decode"] == 1
     ref = _pool_clone(be.pages)
     args = [be._dev(a) for a in (toks, pos, tabs)]
     want, _ = m._decode_forward(be.params, ref, *args, fused=True)
     assert torch.equal(got, want)
     assert torch.equal(be.decode_logits(toks, pos, tabs), want)   # capture
     assert torch.equal(be.decode_logits(toks, pos, tabs), want)   # replay
-    assert m.n_decode_graph_captures == 2
+    assert m.graphs.captures["decode"] == 2
 
 
 def test_decode_graph_replay_allocates_only_its_logits(cuda):
@@ -975,11 +981,52 @@ def test_decode_graph_replay_allocates_only_its_logits(cuda):
     logits, _ = m.decode_paged(be.params, be.pages, *args, fused=True)
     torch.cuda.synchronize()
     stats1 = torch.cuda.memory_stats()
-    assert m.n_decode_graph_replays == 2 and m._head[2] is head
+    assert m.graphs.replays["decode"] == 2 and m._head[2] is head
     assert stats1["allocation.all.allocated"] \
         - stats0["allocation.all.allocated"] == 1
     assert torch.cuda.max_memory_allocated() - base <= \
         logits.numel() * 4 + 512 < head.numel() * 4
+
+
+def test_ticket_buffer_a_graph_reads_outlives_a_wider_launch(cuda,
+                                                             monkeypatch):
+    """A ticket buffer handed to a paged launch stays allocated at its
+    address after a wider launch takes a bigger one: a CUDA graph that
+    captured the first launch reads its counters there."""
+    import gc
+    import weakref
+
+    from repro_torch.kernels import paged_attention as pa
+
+    monkeypatch.setattr(pa, "_tickets", {})
+    H, KV, D, page = 32, 4, 64, 16
+    n_max = 4 * pa.CHUNK // page        # four chunks: every launch merges
+    g = torch.Generator(device=cuda).manual_seed(5)
+
+    def launch(B):
+        P = B * n_max + 1
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=g,
+                               device=cuda).to(torch.bfloat16)
+
+        q, kp, vp = rnd(B, H, D), rnd(P, page, KV, D), rnd(P, page, KV, D)
+        tab = torch.arange(B * n_max, dtype=torch.int32,
+                           device=cuda).reshape(B, n_max)
+        ctx = torch.full((B,), n_max * page, dtype=torch.int32, device=cuda)
+        pa.paged_attention(q, kp, vp, tab, ctx)
+        torch.cuda.synchronize()
+        return q.device
+
+    dev = launch(1)
+    first = weakref.ref(pa._tickets[dev][-1])
+    ptr, size = first().data_ptr(), first().numel()
+    launch(64)
+    gc.collect()
+    held = pa._tickets[dev]
+    assert len(held) == 2 and held[-1].numel() > size
+    assert first() is held[0] and held[0].data_ptr() == ptr
+    assert pa.ticket_sum() == 0
 
 
 def test_profiler_sees_a_replay_launch_one_paged_kernel_per_layer(cuda):
@@ -1057,8 +1104,8 @@ def test_prefill_graph_replays_write_the_eager_pages_across_chunkings(
         used = tab[:-(-120 // be.page)].long()
         prompt_kv.append([t[..., used, :, :, :].clone()
                           for t in tree_leaves(be.pages)])
-    assert (m.n_prefill_graph_captures, m.n_prefill_graph_replays) == (1, 7)
-    assert m.n_decode_graph_captures == m.n_decode_graph_replays == 0
+    assert _counts(m, "prefill") == (1, 7)
+    assert _counts(m, "decode") == (0, 0)
     for kv in prompt_kv[1:]:
         assert all(torch.equal(a, b) for a, b in zip(prompt_kv[0], kv))
 
@@ -1068,7 +1115,7 @@ def test_prefill_graphs_serve_the_eager_streams(cuda, monkeypatch):
     with graphs as with the eager forwards forced; every prefill call of
     the graphed run but the first replays."""
     from repro_torch.core.baselines import make_scheduler
-    from repro_torch.models import decode_graphs as dg
+    from repro_torch.models import paged_graphs as pg
     from repro_torch.serving.engine import EngineConfig, ServeEngine
     from repro_torch.serving.request import Request, SLOSpec
 
@@ -1087,11 +1134,10 @@ def test_prefill_graphs_serve_the_eager_streams(cuda, monkeypatch):
     be, graphed = streams()
     m = be.model
     assert be.n_prefill_dispatches > 4
-    assert (m.n_prefill_graph_captures, m.n_prefill_graph_replays) == \
-        (1, be.n_prefill_dispatches - 1)
-    monkeypatch.setattr(dg, "usable", lambda *a: False)
+    assert _counts(m, "prefill") == (1, be.n_prefill_dispatches - 1)
+    monkeypatch.setattr(pg, "usable", lambda *a: False)
     be, eager = streams()
-    assert be.model.n_prefill_graph_replays == 0
+    assert be.model.graphs.replays["prefill"] == 0
     assert graphed == eager
 
 
@@ -1111,7 +1157,7 @@ def test_prefill_graph_replay_allocates_nothing(cuda):
     m.prefill_paged(be.params, be.pages, toks, start, tab, n)
     torch.cuda.synchronize()
     stats1 = torch.cuda.memory_stats()
-    assert m.n_prefill_graph_replays == 2
+    assert m.graphs.replays["prefill"] == 2
     assert stats1["allocation.all.allocated"] \
         == stats0["allocation.all.allocated"]
     assert torch.cuda.max_memory_allocated() == base

@@ -1,12 +1,12 @@
-"""The paged forwards' CUDA graphs (``models/decode_graphs.py``) on the
+"""The paged forwards' CUDA graphs (``models/paged_graphs.py``) on the
 CPU: which calls may take a graph (CUDA inputs at tp=1, outside a capture
 and a dispatch mode), the eager paths bitwise ``_decode_forward`` and the
 int-argument prefill with the counters at zero on the CPU, under a TP
 context and under a cost counter, prefill's device start and length
 writing the pages the int path writes, and the graph table's keying by
-kind and shape, invalidation and counts on a stub capture, whose graph
-runs the captured forward again on its own buffers.  The graphs
-themselves run on the card (``tests/test_torch_cuda.py``)."""
+kind and shape, invalidation by its owner and counts on a stub capture,
+whose graph runs the captured forward again on its own buffers.  The
+graphs themselves run on the card (``tests/test_torch_cuda.py``)."""
 
 import dataclasses
 
@@ -21,7 +21,8 @@ from repro_torch.configs.archs import reduced_config  # noqa: E402
 from repro_torch.core.baselines import make_scheduler  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.launch.roofline import CostCounter  # noqa: E402
-from repro_torch.models import decode_graphs as dg  # noqa: E402
+from repro_torch.models import paged_graphs as pg  # noqa: E402
+from repro_torch.models.layers import _inv_freq  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.models.partition import NULL_CTX, AxisCtx  # noqa: E402
 from repro_torch.obs import MetricsRegistry  # noqa: E402
@@ -71,11 +72,12 @@ class Identity:
 def _on_card(monkeypatch):
     """``usable`` with its device test passed, every other condition its
     own."""
-    real = dg.usable
+    real = pg.usable
     monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
                         lambda: False)
-    monkeypatch.setattr(dg, "usable", lambda ctx, *ts: real(
-        ctx, *(CudaLike(t) for t in ts)))
+    monkeypatch.setattr(pg, "usable", lambda ctx, *ts: real(
+        ctx, *(CudaLike(t) if isinstance(t, torch.Tensor) else t
+               for t in ts)))
 
 
 @pytest.fixture
@@ -87,10 +89,15 @@ def _model(arch="tinyllama-1.1b", ctx=NULL_CTX, layers=2, pool=POOL,
            page=PAGE):
     cfg = dataclasses.replace(reduced_config(arch), num_layers=layers)
     m = build_model(cfg, ctx)
-    m.decode_graphs = dg.DecodeGraphs(capture=stub_capture)
+    m.graphs = pg.PagedGraphs(capture=stub_capture)
     params = m.init(torch.Generator().manual_seed(0))
     pages = m.init_paged_caches(pool, page, "cpu")
     return m, params, pages
+
+
+def _counts(m, kind):
+    """(captures, replays) of ``kind`` in the model's graph table."""
+    return m.graphs.captures[kind], m.graphs.replays[kind]
 
 
 def _inputs(B, step):
@@ -120,16 +127,17 @@ def test_usable_takes_cuda_int32_calls_at_tp1_outside_modes(monkeypatch):
                         lambda: False)
     t = torch.zeros((4, 1), dtype=torch.int32)
     cuda = [CudaLike(t)] * 3
-    assert dg.usable(NULL_CTX, *cuda)
-    assert not dg.usable(NULL_CTX, t, t[:, 0], t)          # on the CPU
-    assert not dg.usable(AxisCtx(tp_attn_axis=Identity()), *cuda)
-    assert not dg.usable(NULL_CTX, cuda[0],
+    assert pg.usable(NULL_CTX, *cuda)
+    assert pg.usable(NULL_CTX, cuda[0], 64, cuda[0], 40)   # host ints aside
+    assert not pg.usable(NULL_CTX, t, t[:, 0], t)          # on the CPU
+    assert not pg.usable(AxisCtx(tp_attn_axis=Identity()), *cuda)
+    assert not pg.usable(NULL_CTX, cuda[0],
                          CudaLike(t.long()), cuda[0])      # not int32
     with CostCounter():
-        assert not dg.usable(NULL_CTX, *cuda)
+        assert not pg.usable(NULL_CTX, *cuda)
     monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
                         lambda: True)
-    assert not dg.usable(NULL_CTX, *cuda)
+    assert not pg.usable(NULL_CTX, *cuda)
 
 
 @pytest.mark.parametrize("case", ["cpu", "tp_ctx", "cost_counter"])
@@ -157,8 +165,8 @@ def test_eager_paths_equal_the_forward_and_count_nothing(case, request):
                                         fused=True)
         assert torch.equal(got, want)
     _equal_pools(pages, ref)
-    assert m.n_decode_graph_captures == m.n_decode_graph_replays == 0
-    assert not m.decode_graphs.graphs and not m.decode_graphs.seen
+    assert _counts(m, "decode") == (0, 0)
+    assert not m.graphs.graphs and not m.graphs.seen
 
 
 @pytest.mark.parametrize("arch", ["tinyllama-1.1b", "kimi-k2-1t-a32b"])
@@ -176,20 +184,22 @@ def test_stub_graphs_capture_on_the_second_call_and_replay_bitwise(on_card,
         got, out = m.decode_paged(params, pages, toks, pos, tabs, fused=True)
         assert out is pages and torch.equal(got, want)
         # the caller's logits are a copy the next call does not overwrite
-        g = m.decode_graphs.graphs.get(("decode", 8, N_MAX, True))
+        g = m.graphs.graphs.get(("decode", 8, N_MAX, True))
         assert g is None or got.data_ptr() != g.out.data_ptr()
     _equal_pools(pages, ref)
-    assert (m.n_decode_graph_captures, m.n_decode_graph_replays) == (1, 3)
+    assert _counts(m, "decode") == (1, 3)
     dec = sp.select("model.decode")
     assert [sp.attrs[i]["graphed"] for i in dec] == [0, 1, 1, 1]
-    # the eager call records spans inside its forward, the capture none
-    # (the stub's replays run the forward again in Python, and record)
+    # the eager call records spans inside its forward, the graphed calls
+    # none (the recorder is detached while the stub captures and replays)
     inner = {sp.parent[i] for i in range(len(sp))
              if sp.name[i] == "model.lm_head"}
-    assert dec[0] in inner and dec[1] not in inner
-    # the graph holds the f32 head it reads, and the rope table
-    holds = m.decode_graphs.graphs[("decode", 8, N_MAX, True)].holds
-    assert holds[0] is m._head and holds[2].dtype == torch.float32
+    assert dec[0] in inner and not inner & set(dec[1:])
+    # the table's owner keeps the f32 head the graph reads
+    owner = m.graphs.owner
+    assert owner[0] is params and owner[1] is pages and owner[2] is m._head
+    assert m._head[2] is m._head_f32(params["lm_head"])
+    assert m._head[2].dtype == torch.float32
 
 
 def test_stub_table_keys_by_shape_and_drops_on_new_params_pages_or_head(
@@ -198,9 +208,11 @@ def test_stub_table_keys_by_shape_and_drops_on_new_params_pages_or_head(
         out = forward(*inputs)
         return StubGraph(lambda: torch.mul(inputs[0], 2, out=out)), out
 
-    t = dg.DecodeGraphs(capture=capture)
+    t = pg.PagedGraphs(capture=capture)
     head = torch.zeros(3)
     params, pages = {"lm_head": head}, {}
+    # the model's lm_head record, as ``Model._paged_call`` puts in an owner
+    heads = build_model(reduced_config("tinyllama-1.1b"))
     launches = pa.launches
     monkeypatch.setitem(launches, "fused_decode_attention", 0)
 
@@ -208,38 +220,43 @@ def test_stub_table_keys_by_shape_and_drops_on_new_params_pages_or_head(
         launches["fused_decode_attention"] += 5
         return x * 2
 
-    def step(key, x, params=params, pages=pages, head=head):
-        plan = t.plan(key, params, pages, head)
-        if plan == dg.REPLAY:
-            return plan, t.replay(key, (x,))
-        if plan == dg.CAPTURE:
-            return plan, t.capture(key, forward, (x,), holds=())
-        return plan, forward(x)
+    def step(key, x, params=params, pages=pages, head=head, table=t,
+             forward=forward, inputs=None):
+        """The call's mode, by the counts, and its output; the table's
+        ``graphed`` said beforehand whether the call would take a graph."""
+        owner = (params, pages, heads._head_state(head))
+        graphed = table.graphed(key, owner)
+        was = table.captures[key[0]], table.replays[key[0]]
+        y = table.run(key, owner, forward, inputs or (x,))
+        mode = ("capture" if table.captures[key[0]] > was[0] else
+                "replay" if table.replays[key[0]] > was[1] else "eager")
+        assert graphed == (mode != "eager")
+        return mode, y
 
     a, b = ("decode", 8, 4, True), ("decode", 16, 4, True)
     x = torch.arange(4.0)
     assert [step(a, x)[0] for _ in range(3)] == \
-        [dg.EAGER, dg.CAPTURE, dg.REPLAY]
-    assert step(b, x)[0] == dg.EAGER and step(a, x)[0] == dg.REPLAY
+        ["eager", "capture", "replay"]
+    assert step(b, x)[0] == "eager" and step(a, x)[0] == "replay"
     # the replay reads the caller's input and hands out a copy
     before = launches["fused_decode_attention"]
-    plan, y = step(a, x + 1)
-    assert plan == dg.REPLAY and torch.equal(y, 2 * (x + 1))
+    mode, y = step(a, x + 1)
+    assert mode == "replay" and torch.equal(y, 2 * (x + 1))
     assert launches["fused_decode_attention"] == before + 5
     assert y.data_ptr() != t.graphs[a].out.data_ptr()
     # the capture's own launches were taken back: one forward, counted once
     before = launches["fused_decode_attention"]
-    assert step(b, x)[0] == dg.CAPTURE
+    assert step(b, x)[0] == "capture"
     assert launches["fused_decode_attention"] == before + 5
     assert t.captures == {"decode": 2} and t.replays == {"decode": 5}
     assert set(t.graphs) == {a, b}
     # a prefill key of the same numbers is another graph, counted apart
     pre = ("prefill", 8, 4)
     assert [step(pre, x)[0] for _ in range(3)] == \
-        [dg.EAGER, dg.CAPTURE, dg.REPLAY]
+        ["eager", "capture", "replay"]
     assert t.captures == {"decode": 2, "prefill": 1}
     assert t.replays == {"decode": 5, "prefill": 2}
-    assert step(a, x)[0] == dg.REPLAY and set(t.graphs) == {a, b, pre}
+    assert step(a, x)[0] == "replay" and set(t.graphs) == {a, b, pre}
     # new params, new pages, another head or a head changed in place: every
     # graph of either kind and every key seen goes, and the call runs eager
     head2 = torch.zeros(3)
@@ -247,27 +264,31 @@ def test_stub_table_keys_by_shape_and_drops_on_new_params_pages_or_head(
                {"head": head2}):
         new = dict(params=params, pages=pages, head=head)
         new.update(kw)
-        assert step(a, x, **new)[0] == dg.EAGER
+        assert step(a, x, **new)[0] == "eager"
         assert set(t.graphs) == set() and t.seen == {a}
         assert [step(a, x)[0] for _ in range(3)] == \
-            [dg.EAGER, dg.CAPTURE, dg.REPLAY]
-        assert [step(pre, x)[0] for _ in range(2)] == [dg.EAGER, dg.CAPTURE]
+            ["eager", "capture", "replay"]
+        assert [step(pre, x)[0] for _ in range(2)] == ["eager", "capture"]
     head.add_(1)
-    assert step(pre, x)[0] == dg.EAGER and not t.graphs
-    assert t.owner[3] == head._version
-    # a host int fills its 0-d buffer; a forward without output gives None
-    t.drop()
-    box = {}
+    assert step(pre, x)[0] == "eager" and not t.graphs
+    assert t.owner[2][0] is head and t.owner[2][1] == head._version
+    # a host int reaches the forward as a 0-d int64 tensor and fills its
+    # 0-d buffer on a replay; a forward without output gives None
+    box, got = {}, []
 
     def capture_none(graphs, forward, inputs):
         forward(*inputs)
-        return StubGraph(lambda: box.update(n=int(inputs[0]))), None
+        return StubGraph(lambda: box.update(n=int(inputs[1]))), None
 
-    t2 = dg.DecodeGraphs(capture=capture_none)
-    n0 = torch.tensor(3)
-    assert t2.capture(pre, lambda n: None, (n0,), holds=()) is None
-    assert box["n"] == 3 and t2.replay(pre, (41,)) is None
-    assert box["n"] == 41 and int(n0) == 3
+    def no_output(x, n):
+        got.append((n.dtype, n.shape, int(n)))
+
+    t2 = pg.PagedGraphs(capture=capture_none)
+    modes = [step(pre, x, table=t2, forward=no_output, inputs=(x, n))
+             for n in (3, 5, 41)]
+    assert modes == [("eager", None), ("capture", None), ("replay", None)]
+    assert got == [(torch.int64, (), 3), (torch.int64, (), 5)]
+    assert box["n"] == 41 and int(t2.graphs[pre].inputs[1]) == 41
     assert t2.captures == {"prefill": 1} and t2.replays == {"prefill": 2}
 
 
@@ -337,8 +358,8 @@ def test_eager_prefill_paths_write_the_int_paths_pages_and_count_nothing(
         else:
             m.prefill_paged(params, pages, toks, start, tab, 64 - i)
     _equal_pools(pages, ref)
-    assert m.n_prefill_graph_captures == m.n_prefill_graph_replays == 0
-    assert not m.decode_graphs.graphs and not m.decode_graphs.seen
+    assert _counts(m, "prefill") == (0, 0)
+    assert not m.graphs.graphs and not m.graphs.seen
 
 
 @pytest.mark.parametrize("arch", ["tinyllama-1.1b", "kimi-k2-1t-a32b"])
@@ -369,33 +390,32 @@ def test_stub_prefill_graphs_capture_on_the_second_call_and_write_bitwise(
 
     pre, ref = chunks(pages, ref, [(0, 64), (64, 64), (128, 64), (192, 8)],
                       [0, 1, 1, 1])
-    assert (m.n_prefill_graph_captures, m.n_prefill_graph_replays) == (1, 3)
-    assert m.n_decode_graph_captures == m.n_decode_graph_replays == 0
+    assert _counts(m, "prefill") == (1, 3)
+    assert _counts(m, "decode") == (0, 0)
     # the eager call records spans inside its forward, the capture none
     inner = {sp.parent[i] for i in range(len(sp))
              if sp.name[i] == "model.embed"}
     assert pre[0] in inner and pre[1] not in inner
-    # the graph holds the rope table it reads
-    (rope,) = m.decode_graphs.graphs[key].holds
-    assert rope.dtype == torch.float32
+    # the rope table the graph reads is never evicted from its cache
+    assert _inv_freq.cache_parameters()["maxsize"] is None
     # a decode call of 64 lanes on the same table width is its own key
     toks, pos, _ = _inputs(64, 0)
     tabs = _chunk(0)[1][None].repeat(64, 1)
     for want in ([key], [key, ("decode", 64, PF_NMAX, True)]):
         _, pages = m.decode_paged(params, pages, toks, pos, tabs, fused=True)
         ref = _pages_copy(pages)
-        assert list(m.decode_graphs.graphs) == want
-    assert m.n_prefill_graph_replays == 3
+        assert list(m.graphs.graphs) == want
+    assert _counts(m, "prefill") == (1, 3)
     # new pages, a head changed in place, new params: every graph goes and
     # the next call runs eager, then the shape captures again
     pages = _pages_copy(pages)
     pre, ref = chunks(pages, ref, [(0, 64), (64, 30)], [0, 1])
     params["lm_head"].add_(0)
     pre, ref = chunks(pages, ref, [(0, 64)], [0])
-    assert list(m.decode_graphs.graphs) == []
+    assert list(m.graphs.graphs) == []
     params = dict(params)
     pre, ref = chunks(pages, ref, [(64, 64), (0, 64), (128, 64)], [0, 1, 1])
-    assert (m.n_prefill_graph_captures, m.n_prefill_graph_replays) == (3, 6)
+    assert _counts(m, "prefill") == (3, 6)
 
 
 def _req(rid, prompt, out):
@@ -406,7 +426,7 @@ def _req(rid, prompt, out):
 def _served():
     be = PagedTorchBackend(page=16, device="cpu", num_blocks=8, max_len=64,
                            seed=0)
-    be.model.decode_graphs = dg.DecodeGraphs(capture=stub_capture)
+    be.model.graphs = pg.PagedGraphs(capture=stub_capture)
     reg = MetricsRegistry()
     eng = ServeEngine(be, make_scheduler("tempo", use_predictor=False),
                       EngineConfig(max_batch=2, prefill_budget=16),
@@ -425,24 +445,22 @@ def test_stub_graphs_serve_the_eager_streams_and_are_counted(monkeypatch):
     be, reg, graphed = _served()
     assert graphed == eager
     m = be.model
-    assert m.n_decode_graph_captures == 1 and m.n_decode_graph_replays > 5
+    captures, replays = _counts(m, "decode")
+    assert captures == 1 and replays > 5
     assert reg.value_of("torch_decode_graph_captures_total") == 1
-    assert reg.value_of("torch_decode_graph_replays_total") == \
-        m.n_decode_graph_replays
+    assert reg.value_of("torch_decode_graph_replays_total") == replays
     # every prefill call of the run (one 64-row call a chunk) but the
     # first replays
     assert be.n_prefill_dispatches > 2
-    assert (m.n_prefill_graph_captures, m.n_prefill_graph_replays) == \
-        (1, be.n_prefill_dispatches - 1)
+    assert _counts(m, "prefill") == (1, be.n_prefill_dispatches - 1)
     assert reg.value_of("torch_prefill_graph_captures_total") == 1
     assert reg.value_of("torch_prefill_graph_replays_total") == \
-        m.n_prefill_graph_replays
+        be.n_prefill_dispatches - 1
     # new weights drop the graphs: the next call runs eager, then captures
     be.load_params(m.init(torch.Generator().manual_seed(1)))
     toks, pos, _ = (a.numpy() for a in _inputs(64, 0))
     tabs = np.full((64, be.n_max), be.scrap, np.int32)
-    replays = m.n_decode_graph_replays
+    replays = m.graphs.replays["decode"]
     for _ in range(3):
         be.decode_logits(toks, pos, tabs)
-    assert m.n_decode_graph_captures == 2
-    assert m.n_decode_graph_replays == replays + 2
+    assert _counts(m, "decode") == (2, replays + 2)

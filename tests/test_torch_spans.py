@@ -3,8 +3,8 @@ backend and model step, on the CPU: off by default, storing nothing and
 entering no profiler range; token streams equal with it on and off; spans
 nested as the backend and model call each other, with the rows, lanes and
 tokens that were staged; an ``rt:`` range of the same name and nesting
-for every span while a profiler runs; and the off path testing ``on``
-and nothing else."""
+for every span while a profiler runs; the off path never beginning or
+ending a span; and a span closed when its body raises."""
 
 import collections
 
@@ -14,7 +14,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)          # parallel test workers share the CPU
 
 from repro_torch.core.baselines import make_scheduler  # noqa: E402
-from repro_torch.obs.spans import NULL_SPANS, Spans  # noqa: E402
+from repro_torch.obs.spans import NULL_SPANS, NullSpans, Spans  # noqa: E402
 from repro_torch.serving.engine import EngineConfig, ServeEngine  # noqa: E402
 from repro_torch.serving.request import Request, SLOSpec  # noqa: E402
 from repro_torch.serving.torch_backend import (ROWS,  # noqa: E402
@@ -102,6 +102,7 @@ def test_off_by_default_stores_nothing_and_enters_no_range():
         _script(be)
     assert not _rt_events(prof)
     assert NULL_SPANS.on is False and not hasattr(NULL_SPANS, "name")
+    assert NULL_SPANS.span("a") is NULL_SPANS.span("b", rows=1)
 
 
 def test_streams_equal_with_the_recorder_on_and_off():
@@ -189,29 +190,35 @@ def test_profiler_mirrors_every_span():
     assert theirs == mine and len(mine) > 5
 
 
-class CountingSpans:
-    """A recorder that counts the reads of ``on``; off, it refuses to be
-    used beyond them."""
+class CountingSpans(Spans):
+    """A recorder that counts its ``span`` calls."""
 
-    def __init__(self, inner=None):
-        self.inner, self.reads = inner, 0
+    calls = 0
 
-    @property
-    def on(self):
-        self.reads += 1
-        return self.inner is not None
+    def span(self, name, **attrs):
+        self.calls += 1
+        return super().span(name, **attrs)
+
+
+class CountingNullSpans(NullSpans):
+    """The off recorder, counting its ``span`` calls and refusing to begin
+    or end a span."""
+
+    calls = 0
+
+    def span(self, name, **attrs):
+        self.calls += 1
+        return super().span(name, **attrs)
 
     def begin(self, *a, **k):
-        assert self.inner is not None, "begin on the off path"
-        return self.inner.begin(*a, **k)
+        raise AssertionError("begin on the off path")
 
     def end(self, i):
-        assert self.inner is not None, "end on the off path"
-        self.inner.end(i)
+        raise AssertionError("end on the off path")
 
 
 def test_off_path_tests_on_and_does_nothing_else():
-    on, off = CountingSpans(Spans()), CountingSpans()
+    on, off = CountingSpans(), CountingNullSpans()
     streams = []
     for sp in (on, off):
         be = _backend()
@@ -222,10 +229,9 @@ def test_off_path_tests_on_and_does_nothing_else():
         streams.append({k: list(v) for k, v in be.generated.items()})
         if sp is off:
             assert not _rt_events(prof)
-    # as many tests of ``on`` on the off path as on the on path: no span
-    # site does anything more when off; at most two per span
-    n = len(on.inner)
-    assert off.reads == on.reads and n <= off.reads <= 2 * n
+    # as many span sites reached on the off path as on the on path, one
+    # span recorded per site on: no site does anything more when off
+    assert off.calls == on.calls == len(on) > 0
     assert streams[0] == streams[1]
 
 
@@ -245,3 +251,10 @@ def test_bounded_storage_counts_drops():
     sp.begin("b")
     sp.end(a)
     assert sp.select("b") == [] and sp.select("a") == [0]
+    # a span is closed when its body raises
+    sp = Spans()
+    with pytest.raises(ValueError):
+        with sp.span("a", rows=2):
+            raise ValueError
+    assert sp.select("a") == [0] and sp.attrs[0] == {"rows": 2}
+    assert not sp._open
